@@ -1,0 +1,770 @@
+"""Fused arm dynamics: the grasp-MPC hot path as hand-written CUDA kernels.
+
+A solve steps the 8-dof arm thousands of times in sequence; as plain torch
+each generated substep is about 4.3k small tensor operations, so a rollout is
+launch-bound. The port keeps the JAX package's remedy and moves it to
+Hopper:
+
+  * **Symbolic scalar layer.** Entries are Python floats (constants of the
+    plan) or values; ``smul``/``sadd``/... fold constants, so topology zeros
+    and ones vanish from the emitted code. A value is either a torch tensor
+    (the plain versions below run the generated physics directly on tensors
+    of any shape) or a :class:`Var`, an SSA name in emitted C++.
+  * **Generated substep.** ``make_substep`` writes FK, CRBA, RNE, the
+    equality springs, the Jacobi-equilibrated unrolled Cholesky solve and
+    semi-implicit Euler as straight-line code with the plan's constants
+    folded. ``substep_header`` emits it once as a ``__device__`` function
+    (``chain_substep.cuh``); ``cost_header`` does the same for the fused
+    line-search costs (``chain_cost.cuh``).
+  * **Kernels** (``csrc/chain_*.cu``, written by hand around those
+    headers): ``rollout_open``, ``lin_fd`` (reached through
+    ``lin_fd_fast``) and ``rollout_closed``. Each calls the one-substep
+    function inside runtime loops over substeps and knots, so nvcc compiles
+    one substep, as Mosaic did for the TPU kernels.
+
+Every kernel wrapper has its plain version beside it: a CPU tensor runs
+the plain version; a CUDA tensor launches the kernel (and counts the
+launch in ``<wrapper>.launches``) or raises. The port's counterpart of the
+JAX package's physics/pallas_chain.py.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from mujoco_rl_ur5_tpu_torch import _build
+from mujoco_rl_ur5_tpu_torch.physics.chain import ChainPlan
+
+EPS = 1e-3          # forward-difference step of lin_fd (rad, rad/s, ctrl)
+_FD_CHUNK = 1 << 15  # instances per pass of lin_fd_plain (bounds its memory)
+
+# -- symbolic scalar layer ----------------------------------------------------
+
+
+def _isf(x) -> bool:
+    return isinstance(x, float)
+
+
+def _c(x) -> float:
+    """Snap tiny parser noise to an exact zero so it folds."""
+    x = float(x)
+    return 0.0 if abs(x) < 1e-13 else x
+
+
+def smul(a, b):
+    if _isf(a):
+        if a == 0.0:
+            return 0.0
+        if a == 1.0:
+            return b
+    if _isf(b):
+        if b == 0.0:
+            return 0.0
+        if b == 1.0:
+            return a
+    return a * b
+
+
+def sadd(*terms):
+    live = [t for t in terms if not (_isf(t) and t == 0.0)]
+    consts = [t for t in live if _isf(t)]
+    vals = [t for t in live if not _isf(t)]
+    acc = None
+    if consts:
+        s = float(sum(consts))
+        if s != 0.0 or not vals:
+            acc = s
+    for a in vals:
+        acc = a if acc is None else acc + a
+    return 0.0 if acc is None else acc
+
+
+def sneg(a):
+    return -a
+
+
+def ssub(a, b):
+    return sadd(a, sneg(b))
+
+
+def sdot(a, b):
+    return sadd(*[smul(x, y) for x, y in zip(a, b)])
+
+
+def smv(M, v):
+    return [sdot(row, v) for row in M]
+
+
+def smm(A, B):
+    return [[sadd(*[smul(A[i][k], B[k][j]) for k in range(len(B))])
+             for j in range(len(B[0]))] for i in range(len(A))]
+
+
+def scross(a, b):
+    return [ssub(smul(a[1], b[2]), smul(a[2], b[1])),
+            ssub(smul(a[2], b[0]), smul(a[0], b[2])),
+            ssub(smul(a[0], b[1]), smul(a[1], b[0]))]
+
+
+def svadd(a, b):
+    return [sadd(x, y) for x, y in zip(a, b)]
+
+
+def svsub(a, b):
+    return [ssub(x, y) for x, y in zip(a, b)]
+
+
+def svscale(s, v):
+    return [smul(s, x) for x in v]
+
+
+def scos(x):
+    return math.cos(x) if _isf(x) else x.cos()
+
+
+def ssin(x):
+    return math.sin(x) if _isf(x) else x.sin()
+
+
+def ssqrt(x):
+    return math.sqrt(x) if _isf(x) else x.sqrt()
+
+
+def srsqrt(x):
+    return 1.0 / math.sqrt(x) if _isf(x) else x.rsqrt()
+
+
+def smax(x, c: float):
+    return max(x, c) if _isf(x) else x.clamp_min(c)
+
+
+def sclip(x, lo: float, hi: float):
+    return min(max(x, lo), hi) if _isf(x) else x.clamp(lo, hi)
+
+
+def _cmat(M) -> list:
+    return [[_c(M[i][j]) for j in range(len(M[0]))] for i in range(len(M))]
+
+
+def _cvec(v) -> list:
+    return [_c(x) for x in v]
+
+
+# -- C++ emission -------------------------------------------------------------
+
+
+def _lit(x) -> str:
+    if isinstance(x, Var):
+        return x.name
+    f = float(np.float32(x))
+    if not math.isfinite(f):
+        raise ValueError(f"non-finite constant {x} in generated code")
+    s = repr(f) + "f"
+    return f"({s})" if s.startswith("-") else s
+
+
+class _Emitter:
+    """Collects SSA statements ``const float tN = ...;`` and counts the
+    arithmetic operations they perform."""
+
+    def __init__(self):
+        self.lines: list[str] = []
+        self.ops = 0
+
+    def value(self, expr: str, ops: int = 1) -> "Var":
+        name = f"t{len(self.lines)}"
+        self.lines.append(f"  const float {name} = {expr};")
+        self.ops += ops
+        return Var(self, name)
+
+    def inputs(self, array: str, n: int) -> list:
+        return [self.value(f"{array}[{i}]", ops=0) for i in range(n)]
+
+
+class Var:
+    """A scalar value in emitted C++: arithmetic emits a new statement.
+    Mirrors the few torch.Tensor methods the generated physics calls."""
+
+    __slots__ = ("em", "name")
+
+    def __init__(self, em: _Emitter, name: str):
+        self.em, self.name = em, name
+
+    def _bin(self, op, a, b):
+        return self.em.value(f"{_lit(a)} {op} {_lit(b)}")
+
+    def __add__(self, o): return self._bin("+", self, o)
+    def __radd__(self, o): return self._bin("+", o, self)
+    def __mul__(self, o): return self._bin("*", self, o)
+    def __rmul__(self, o): return self._bin("*", o, self)
+    def __rtruediv__(self, o): return self._bin("/", o, self)
+    def __neg__(self): return self.em.value(f"-{self.name}", ops=0)
+    def cos(self): return self.em.value(f"cosf({self.name})")
+    def sin(self): return self.em.value(f"sinf({self.name})")
+    def sqrt(self): return self.em.value(f"sqrtf({self.name})")
+    def rsqrt(self): return self.em.value(f"rsqrtf({self.name})")
+
+    def clamp_min(self, c):
+        return self.em.value(f"fmaxf({self.name}, {_lit(c)})")
+
+    def clamp(self, lo, hi):
+        return self.em.value(
+            f"fminf(fmaxf({self.name}, {_lit(lo)}), {_lit(hi)})", ops=2)
+
+
+@dataclass(frozen=True)
+class Generated:
+    """An emitted header and the operations its functions perform."""
+
+    text: str
+    ops: dict
+
+
+# -- generated substep --------------------------------------------------------
+
+
+def make_fk(plan: ChainPlan):
+    """Symbolic FK over entry lists: fk(q) -> (xpos, xrot, anchor, axis_w)
+    per slot / per dof. Shared by the substep and the fused costs."""
+    nv, nmov = plan.nv, plan.nmov
+    body_pos = [_cvec(p) for p in plan.body_pos]
+    body_rot = [_cmat(r) for r in plan.body_rot]
+    parent_slot = [int(s) for s in plan.parent_slot]
+    parent_p = [_cvec(p[:3]) for p in plan.parent_pose]
+    parent_r = [_cmat(p[3:].reshape(3, 3)) for p in plan.parent_pose]
+    jnt_dof = [int(d) for d in plan.jnt_dof]
+    jnt_pos = [_cvec(p) for p in plan.jnt_pos]
+    jnt_axis = [_cvec(a) for a in plan.jnt_axis]
+    jnt_ref = [_c(r) for r in plan.jnt_ref]
+
+    def fk(q):
+        xpos, xrot = [], []
+        anchor = [None] * nv
+        axis_w = [None] * nv
+        for i in range(nmov):
+            ps = parent_slot[i]
+            if ps >= 0:
+                pp, pr = xpos[ps], xrot[ps]
+            else:
+                pp, pr = parent_p[i], parent_r[i]
+            p_pre = svadd(pp, smv(pr, body_pos[i]))
+            r_pre = smm(pr, body_rot[i])
+            d = jnt_dof[i]
+            if d >= 0:
+                th = ssub(q[d], jnt_ref[i])
+                cth, sth = scos(th), ssin(th)
+                ax = jnt_axis[i]
+                aa = [[_c(ax[a] * ax[b]) for b in range(3)]
+                      for a in range(3)]
+                K = [[0.0, -ax[2], ax[1]],
+                     [ax[2], 0.0, -ax[0]],
+                     [-ax[1], ax[0], 0.0]]
+                rj = [[sadd(aa[a][b],
+                            smul(cth,
+                                 _c((1.0 if a == b else 0.0) - aa[a][b])),
+                            smul(sth, _c(K[a][b])))
+                       for b in range(3)] for a in range(3)]
+                jp = jnt_pos[i]
+                anchor[d] = svadd(p_pre, smv(r_pre, jp))
+                p = svadd(p_pre, smv(r_pre, svsub(jp, smv(rj, jp))))
+                r = smm(r_pre, rj)
+                axis_w[d] = smv(r, ax)
+            else:
+                p, r = p_pre, r_pre
+            xpos.append(p)
+            xrot.append(r)
+        return xpos, xrot, anchor, axis_w
+
+    return fk
+
+
+def make_substep(plan: ChainPlan):
+    """substep(q, v, u) -> (q2, v2) over entry lists: the semantics of
+    physics/chain.chain_step with every model constant folded."""
+    nv, nmov = plan.nv, plan.nmov
+    h = float(plan.timestep)
+    grav = _cvec(plan.gravity)
+    damping = _cvec(plan.damping)
+    armature = _cvec(plan.armature)
+    gear = _cvec(plan.gear)
+    lo = _cvec(plan.ctrlrange[:, 0])
+    hi = _cvec(plan.ctrlrange[:, 1])
+    org = _cvec(plan.org)
+    anc = plan.anc_dof.astype(bool)            # (nmov, nv)
+    subb = plan.sub_body.astype(bool)          # (nmov, nmov)
+    dof_subb = plan.dof_sub_body.astype(bool)  # (nv, nmov)
+    mmask = plan.m_mask.astype(bool)           # (nv, nv)
+    act_dof = [int(d) for d in plan.act_dof]
+    ipos = [_cvec(p) for p in plan.ipos]
+    irot = [_cmat(r) for r in plan.irot]
+    idiag = [_cvec(d) for d in plan.idiag]
+    mass = [_c(m) for m in plan.mass]
+    dof_slot = [int(s) for s in plan.dof_slot]
+    dof_parent = [int(s) for s in plan.dof_parent_slot]
+    eqs = [(int(plan.eq_d1[e]), int(plan.eq_d2[e]),
+            [_c(p) for p in plan.eq_poly[e]],
+            _c(plan.eq_q01[e]), _c(plan.eq_q02[e]),
+            float(plan.eq_kc[e, 0]), float(plan.eq_kc[e, 1]))
+           for e in range(len(plan.eq_d1))]
+    # solver sparsity: tree coupling plus the equality pairs
+    smask = [[bool(mmask[i][j]) or bool(mmask[j][i]) for j in range(nv)]
+             for i in range(nv)]
+    for d1, d2, *_ in eqs:
+        smask[d1][d2] = smask[d2][d1] = True
+    fk = make_fk(plan)
+
+    def imul(inert, v6):
+        """10-parameter spatial inertia times a motion 6-vector."""
+        m, hx, hy, hz = inert[0], inert[1], inert[2], inert[3]
+        ixx, iyy, izz, ixy, ixz, iyz = inert[4:]
+        w, vl = v6[:3], v6[3:]
+        iw = [sadd(smul(ixx, w[0]), smul(ixy, w[1]), smul(ixz, w[2])),
+              sadd(smul(ixy, w[0]), smul(iyy, w[1]), smul(iyz, w[2])),
+              sadd(smul(ixz, w[0]), smul(iyz, w[1]), smul(izz, w[2]))]
+        hv = [hx, hy, hz]
+        return (svadd(iw, scross(hv, vl))
+                + svsub(svscale(m, vl), scross(hv, w)))
+
+    def mass_bias(q, v):
+        xpos, xrot, anchor, axis_w = fk(q)
+        cdof = [axis_w[d] + scross(svsub(anchor[d], org), axis_w[d])
+                for d in range(nv)]
+        cinert = []
+        for i in range(nmov):
+            ri = smm(xrot[i], irot[i])
+            rd = [[smul(ri[a][b], idiag[i][b]) for b in range(3)]
+                  for a in range(3)]
+            icom = [[sdot(rd[a], ri[b]) for b in range(3)] for a in range(3)]
+            cv = svsub(svadd(xpos[i], smv(xrot[i], ipos[i])), org)
+            c2 = sdot(cv, cv)
+            m = mass[i]
+            iorg = [[sadd(icom[a][b],
+                          smul(m, ssub(c2 if a == b else 0.0,
+                                       smul(cv[a], cv[b]))))
+                     for b in range(3)] for a in range(3)]
+            cinert.append([m] + svscale(m, cv)
+                          + [iorg[0][0], iorg[1][1], iorg[2][2],
+                             iorg[0][1], iorg[0][2], iorg[1][2]])
+        # CRBA
+        crb = [[sadd(*[cinert[b][k] for b in range(nmov) if subb[s][b]])
+                for k in range(10)] for s in range(nmov)]
+        fmom = [imul(crb[dof_slot[d]], cdof[d]) for d in range(nv)]
+        A = [[0.0] * nv for _ in range(nv)]
+        for i in range(nv):
+            for j in range(i + 1):
+                if mmask[i][j]:
+                    A[i][j] = sdot(fmom[i], cdof[j])
+                    A[j][i] = A[i][j]
+            A[i][i] = sadd(A[i][i], armature[i], h * damping[i])
+        # RNE at qacc = 0
+        contrib = [svscale(v[d], cdof[d]) for d in range(nv)]
+        vbody = [[sadd(*[contrib[d][k] for d in range(nv) if anc[s][d]])
+                  for k in range(6)] for s in range(nmov)]
+        a0 = [0.0, 0.0, 0.0] + [sneg(g) for g in grav]
+        acontrib = []
+        for d in range(nv):
+            pv = [0.0] * 6 if dof_parent[d] < 0 else vbody[dof_parent[d]]
+            cd = cdof[d]
+            cdd = (scross(pv[:3], cd[:3])
+                   + svadd(scross(pv[:3], cd[3:]), scross(pv[3:], cd[:3])))
+            acontrib.append(svscale(v[d], cdd))
+        fb = []
+        for s in range(nmov):
+            acc = list(a0)
+            for d in range(nv):
+                if anc[s][d]:
+                    acc = svadd(acc, acontrib[d])
+            iv = imul(cinert[s], vbody[s])
+            f6 = imul(cinert[s], acc)
+            w, vl = vbody[s][:3], vbody[s][3:]
+            fb.append(svadd(f6, svadd(scross(w, iv[:3]), scross(vl, iv[3:]))
+                            + scross(w, iv[3:])))
+        bias = []
+        for d in range(nv):
+            fsub = [sadd(*[fb[b][k] for b in range(nmov) if dof_subb[d][b]])
+                    for k in range(6)]
+            bias.append(sdot(cdof[d], fsub))
+        return A, bias
+
+    def solve_scaled(A, b):
+        """Jacobi-equilibrated unrolled Cholesky solve; topology zeros of A
+        fold out of the factorization."""
+        s = [srsqrt(smax(A[i][i], 1e-30)) for i in range(nv)]
+        As = [[smul(smul(A[i][j], s[i]), s[j]) if smask[i][j] else 0.0
+               for j in range(nv)] for i in range(nv)]
+        bs = [smul(b[i], s[i]) for i in range(nv)]
+        L = [[0.0] * nv for _ in range(nv)]
+        Linv_d = [None] * nv
+        for j in range(nv):
+            d = ssub(As[j][j], sadd(*[smul(L[j][k], L[j][k])
+                                      for k in range(j)]))
+            Ld = ssqrt(smax(d, 1e-12))
+            L[j][j] = Ld
+            Linv_d[j] = 1.0 / Ld
+            for i in range(j + 1, nv):
+                off = ssub(As[i][j], sadd(*[smul(L[i][k], L[j][k])
+                                            for k in range(j)]))
+                L[i][j] = smul(off, Linv_d[j])
+        y = [None] * nv
+        for i in range(nv):
+            y[i] = smul(ssub(bs[i], sadd(*[smul(L[i][k], y[k])
+                                           for k in range(i)])), Linv_d[i])
+        x = [None] * nv
+        for i in reversed(range(nv)):
+            x[i] = smul(ssub(y[i], sadd(*[smul(L[k][i], x[k])
+                                          for k in range(i + 1, nv)])),
+                        Linv_d[i])
+        return [smul(x[i], s[i]) for i in range(nv)]
+
+    def substep(q: Sequence, v: Sequence, u: Sequence):
+        A, bias = mass_bias(q, v)
+        tau = [0.0] * nv
+        for j, d in enumerate(act_dof):
+            tau[d] = smul(gear[j], sclip(u[j], lo[j], hi[j]))
+        qfrc = [ssub(tau[i], sadd(bias[i], smul(damping[i], v[i])))
+                for i in range(nv)]
+        for d1, d2, pc, q01, q02, k, cd in eqs:
+            x2 = ssub(q[d2], q02)
+            poly = sadd(pc[0], smul(pc[1], x2),
+                        smul(pc[2], smul(x2, x2)),
+                        smul(pc[3], smul(x2, smul(x2, x2))),
+                        smul(pc[4], smul(smul(x2, x2), smul(x2, x2))))
+            dpoly = sadd(pc[1], smul(2.0 * pc[2], x2),
+                         smul(3.0 * pc[3], smul(x2, x2)),
+                         smul(4.0 * pc[4], smul(x2, smul(x2, x2))))
+            r = ssub(ssub(q[d1], q01), poly)
+            rdot = ssub(v[d1], smul(dpoly, v[d2]))
+            fm = sneg(sadd(smul(k, r), smul(h * k + cd, rdot)))
+            qfrc[d1] = sadd(qfrc[d1], fm)
+            qfrc[d2] = sadd(qfrc[d2], sneg(smul(dpoly, fm)))
+            w = h * (h * k + cd)
+            A[d1][d1] = sadd(A[d1][d1], w)
+            A[d2][d2] = sadd(A[d2][d2], smul(w, smul(dpoly, dpoly)))
+            off = sneg(smul(w, dpoly))
+            A[d1][d2] = sadd(A[d1][d2], off)
+            A[d2][d1] = sadd(A[d2][d1], off)
+        qacc = solve_scaled(A, qfrc)
+        v2 = [sadd(v[i], smul(h, qacc[i])) for i in range(nv)]
+        q2 = [sadd(q[i], smul(h, v2[i])) for i in range(nv)]
+        return q2, v2
+
+    return substep
+
+
+@functools.lru_cache(maxsize=None)
+def _substep(plan: ChainPlan):
+    return make_substep(plan)
+
+
+def make_knot_step(plan: ChainPlan, substeps: int):
+    """One MPC knot = ``substeps`` generated substeps under the same u."""
+    substep = _substep(plan)
+
+    def knot(q, v, u):
+        for _ in range(substeps):
+            q, v = substep(q, v, u)
+        return q, v
+
+    return knot
+
+
+# -- emitted headers ------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def substep_header(plan: ChainPlan) -> Generated:
+    """``chain_substep.cuh``: the substep and the control clip as
+    ``__device__`` functions over register arrays."""
+    nv, nu = plan.nv, plan.nu
+    em = _Emitter()
+    q, v, u = em.inputs("q", nv), em.inputs("v", nv), em.inputs("u", nu)
+    q2, v2 = _substep(plan)(q, v, u)
+    stores = ([f"  q[{i}] = {_lit(x)};" for i, x in enumerate(q2)]
+              + [f"  v[{i}] = {_lit(x)};" for i, x in enumerate(v2)])
+    clip = [f"  u[{j}] = fminf(fmaxf(u[{j}], {_lit(lo)}), {_lit(hi)});"
+            for j, (lo, hi) in enumerate(plan.ctrlrange)]
+    text = "\n".join([
+        "// Generated by mujoco_rl_ur5_tpu_torch/physics/cuda_chain.py",
+        "#pragma once",
+        f"#define CHAIN_NV {nv}",
+        f"#define CHAIN_NU {nu}",
+        "__device__ __forceinline__ void chain_substep(",
+        "    float* __restrict__ q, float* __restrict__ v,",
+        "    const float* __restrict__ u) {",
+        *em.lines, *stores, "}",
+        "__device__ __forceinline__ void chain_clip_ctrl(float* u) {",
+        *clip, "}", ""])
+    return Generated(text, {"substep": em.ops, "clip": 2 * nu})
+
+
+@functools.lru_cache(maxsize=None)
+def cost_header(cost, nv: int, nu: int, R: int, RT: int) -> Generated:
+    """``chain_cost.cuh``: the fused stage and terminal costs (a pair of
+    symbolic builders, or None for no cost) as ``__device__`` functions."""
+    out, ops = [], {}
+    for which, args in (("stage", (("q", nv), ("v", nv), ("u", nu),
+                                   ("sr", R), ("tr", RT))),
+                        ("term", (("q", nv), ("v", nv), ("tr", RT)))):
+        em = _Emitter()
+        ins = [em.inputs(n, k) for n, k in args]
+        res = 0.0 if cost is None else cost[which == "term"](*ins)
+        sig = ", ".join(f"const float* __restrict__ {n}" for n, _ in args)
+        out += [f"__device__ __forceinline__ float chain_{which}_cost({sig}) "
+                "{", *em.lines, f"  return {_lit(res)};", "}"]
+        ops[which] = em.ops
+    text = "\n".join([
+        "// Generated by mujoco_rl_ur5_tpu_torch/physics/cuda_chain.py",
+        "#pragma once",
+        f"#define CHAIN_NSR {R}",
+        f"#define CHAIN_NTR {RT}",
+        f"#define CHAIN_NSR_ALLOC {max(R, 1)}",
+        f"#define CHAIN_NTR_ALLOC {max(RT, 1)}",
+        *out, ""])
+    return Generated(text, ops)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _open_src(plan: ChainPlan) -> _build.KernelSource:
+    return _build.KernelSource(
+        "chain_rollout_open", "rollout_open", (_P, _P, _P, _I, _I, _I, _P),
+        {"chain_substep.cuh": substep_header(plan).text})
+
+
+@functools.lru_cache(maxsize=None)
+def _lin_src(plan: ChainPlan) -> _build.KernelSource:
+    return _build.KernelSource(
+        "chain_lin_fd", "lin_fd", (_P, _P, _P, _P, _I, _I, _P),
+        {"chain_substep.cuh": substep_header(plan).text})
+
+
+@functools.lru_cache(maxsize=None)
+def _closed_src(plan: ChainPlan, cost, R: int, RT: int) -> _build.KernelSource:
+    return _build.KernelSource(
+        "chain_rollout_closed", "rollout_closed", (_P,) * 11 + (_I,) * 4 + (_P,),
+        {"chain_substep.cuh": substep_header(plan).text,
+         "chain_cost.cuh": cost_header(cost, plan.nv, plan.nu, R, RT).text})
+
+
+def kernel_sources(plan: ChainPlan, cost=None, R: int = 0, RT: int = 0):
+    """The three chain kernels' sources for a plan (and line-search cost),
+    for building them together with ``_build.build_many``."""
+    return [_open_src(plan), _lin_src(plan), _closed_src(plan, cost, R, RT)]
+
+
+# -- wrappers -----------------------------------------------------------------
+
+
+def _route(*ts: torch.Tensor) -> bool:
+    """True: launch the kernel (CUDA tensors, checked); False: run the plain
+    version (CPU tensors). Anything else raises."""
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    for t in ts:
+        if t.device != dev or t.dtype != torch.float32:
+            raise TypeError("kernel inputs must be float32 on one CUDA "
+                            f"device, got {t.dtype} on {t.device}")
+    return True
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _bfast(t: torch.Tensor) -> torch.Tensor:
+    """(B, ...) -> (..., B) contiguous: the kernels' batch-fastest layout."""
+    return t.permute(*range(1, t.dim()), 0).contiguous()
+
+
+def _bslow(t: torch.Tensor) -> torch.Tensor:
+    """(..., B) -> (B, ...) contiguous: back to the public layout."""
+    return t.permute(t.dim() - 1, *range(t.dim() - 1)).contiguous()
+
+
+def _stack(entries, like: torch.Tensor) -> torch.Tensor:
+    return torch.stack([torch.full_like(like, e) if _isf(e) else e
+                        for e in entries], -1)
+
+
+def rollout_open_plain(plan: ChainPlan, substeps: int, x0: torch.Tensor,
+                       us: torch.Tensor) -> torch.Tensor:
+    nv = plan.nv
+    knot = make_knot_step(plan, substeps)
+    q = [x0[:, i] for i in range(nv)]
+    v = [x0[:, nv + i] for i in range(nv)]
+    xs = [x0]
+    for k in range(us.shape[1]):
+        q, v = knot(q, v, [us[:, k, j] for j in range(plan.nu)])
+        xs.append(_stack(q + v, x0[:, 0]))
+    return torch.stack(xs, 1)
+
+
+def rollout_open(plan: ChainPlan, substeps: int, x0: torch.Tensor,
+                 us: torch.Tensor) -> torch.Tensor:
+    """Open-loop rollout: x0 (B, nx), us (B, H, nu) -> xs (B, H+1, nx)."""
+    if not _route(x0, us):
+        return rollout_open_plain(plan, substeps, x0, us)
+    B, H = us.shape[0], us.shape[1]
+    x0t, ust = _bfast(x0), _bfast(us)
+    xs = torch.empty(H + 1, 2 * plan.nv, B, device=x0.device)
+    _build.call(_open_src(plan), x0t.data_ptr(), ust.data_ptr(),
+                xs.data_ptr(), B, H, substeps, _stream(x0))
+    rollout_open.launches += 1
+    return _bslow(xs)
+
+
+rollout_open.launches = 0
+
+
+def lin_fd_plain(plan: ChainPlan, substeps: int, xs: torch.Tensor,
+                 us: torch.Tensor):
+    nv, nu = plan.nv, plan.nu
+    nx = 2 * nv
+    B, H = us.shape[0], us.shape[1]
+    knot = make_knot_step(plan, substeps)
+    xu = torch.cat([xs.reshape(B * H, nx), us.reshape(B * H, nu)], -1)
+    # row p perturbs input p; the last row (no perturbation) is the base
+    pert = torch.cat([EPS * torch.eye(nx + nu, dtype=xs.dtype),
+                      torch.zeros(1, nx + nu, dtype=xs.dtype)]).to(xs.device)
+    F = torch.empty(B * H, nx, nx, dtype=xs.dtype, device=xs.device)
+    L = torch.empty(B * H, nx, nu, dtype=xs.dtype, device=xs.device)
+    for c0 in range(0, B * H, _FD_CHUNK):
+        z = xu[None, c0: c0 + _FD_CHUNK] + pert[:, None]  # (P, n, nx+nu)
+        q, v = knot([z[..., i] for i in range(nv)],
+                    [z[..., nv + i] for i in range(nv)],
+                    [z[..., nx + j] for j in range(nu)])
+        res = _stack(q + v, z[..., 0])                     # (P, n, nx)
+        diff = (res[:-1] - res[-1]) * (1.0 / EPS)          # (nx+nu, n, nx)
+        F[c0: c0 + _FD_CHUNK] = diff[:nx].permute(1, 2, 0)
+        L[c0: c0 + _FD_CHUNK] = diff[nx:].permute(1, 2, 0)
+    return F.reshape(B, H, nx, nx), L.reshape(B, H, nx, nu)
+
+
+def lin_fd(plan: ChainPlan, substeps: int, xs: torch.Tensor,
+           us: torch.Tensor):
+    """Forward-difference knot Jacobians (step 1e-3): xs (B, H, nx),
+    us (B, H, nu) -> F (B, H, nx, nx), L (B, H, nx, nu)."""
+    if not _route(xs, us):
+        return lin_fd_plain(plan, substeps, xs, us)
+    nx, nu = 2 * plan.nv, plan.nu
+    B, H = us.shape[0], us.shape[1]
+    N = B * H
+    xt = xs.reshape(N, nx).t().contiguous()
+    ut = us.reshape(N, nu).t().contiguous()
+    F = torch.empty(nx, nx, N, device=xs.device)
+    L = torch.empty(nx, nu, N, device=xs.device)
+    _build.call(_lin_src(plan), xt.data_ptr(), ut.data_ptr(), F.data_ptr(),
+                L.data_ptr(), N, substeps, _stream(xs))
+    lin_fd.launches += 1
+    return (_bslow(F).reshape(B, H, nx, nx), _bslow(L).reshape(B, H, nx, nu))
+
+
+lin_fd.launches = 0
+
+
+def lin_fd_fast(plan: ChainPlan, substeps: int, xs: torch.Tensor,
+                us: torch.Tensor):
+    """Knot Jacobians from a one-substep FD (one ``lin_fd`` launch) and a
+    composition by repeated squaring: F = A^s, L = (I + A + ... +
+    A^{s-1}) B. The knot applies one u to every substep, so L is the
+    geometric sum; the composition is a batched (B*H, 16, 16) matmul."""
+    if substeps & (substeps - 1):
+        raise ValueError("lin_fd_fast: substeps must be a power of two")
+    A, Bm = lin_fd(plan, 1, xs, us)
+    F = A
+    S = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(A)
+    m = 1
+    while m < substeps:                   # S_2m = S_m + F_m S_m
+        S = S + F @ S
+        F = F @ F
+        m *= 2
+    return F, S @ Bm
+
+
+def rollout_closed_plain(plan: ChainPlan, substeps: int, x0, xbar, ubar, K,
+                         d, alphas: tuple, cost=None, sref=None, tref=None):
+    nv, nu = plan.nv, plan.nu
+    B, H = ubar.shape[0], ubar.shape[1]
+    knot = make_knot_step(plan, substeps)
+    al = torch.tensor(alphas, dtype=torch.float32).to(x0.dtype)
+    al = al.to(x0.device)[:, None]                      # (A, 1)
+    lane = torch.zeros(len(alphas), B, dtype=x0.dtype, device=x0.device)
+    q = [x0[:, i] + lane for i in range(nv)]
+    v = [x0[:, nv + i] + lane for i in range(nv)]
+    tr = [] if tref is None else [tref[:, i] for i in range(tref.shape[-1])]
+    xs, us, acc = [_stack(q + v, lane)], [], 0.0
+    for k in range(H):
+        dx = [xi - xbar[:, k, i] for i, xi in enumerate(q + v)]
+        u = []
+        for j in range(nu):
+            uacc = ubar[:, k, j] + al * d[:, k, j]
+            for i in range(2 * nv):
+                uacc = uacc + K[:, k, j, i] * dx[i]
+            u.append(uacc.clamp(float(plan.ctrlrange[j, 0]),
+                                float(plan.ctrlrange[j, 1])))
+        us.append(torch.stack(u, -1))
+        if cost is not None:
+            sr = ([] if sref is None
+                  else [sref[:, k, i] for i in range(sref.shape[-1])])
+            acc = acc + cost[0](q, v, u, sr, tr)
+        q, v = knot(q, v, u)
+        xs.append(_stack(q + v, lane))
+    xs = torch.stack(xs, 1).permute(2, 0, 1, 3)        # (B, A, H+1, nx)
+    us = torch.stack(us, 1).permute(2, 0, 1, 3)        # (B, A, H, nu)
+    if cost is None:
+        return xs, us
+    costs = lane + (acc + cost[1](q, v, tr))
+    return xs, us, costs.t()
+
+
+def rollout_closed(plan: ChainPlan, substeps: int, x0: torch.Tensor,
+                   xbar: torch.Tensor, ubar: torch.Tensor, K: torch.Tensor,
+                   d: torch.Tensor, alphas: tuple, cost=None,
+                   sref: torch.Tensor = None, tref: torch.Tensor = None):
+    """Line-search rollouts for all alphas in one launch.
+
+    x0 (B, nx), xbar (B, H+1, nx), ubar (B, H, nu), K (B, H, nu, nx),
+    d (B, H, nu) -> xs (B, A, H+1, nx), us (B, A, H, nu) with
+    u = clip(ubar + a d + K (x - xbar)). ``cost`` = (stage_cb, term_cb)
+    fuses the candidates' costs: stage_cb(q, v, u, sref_k, tref) and
+    term_cb(q, v, tref) over entry lists, with per-knot references
+    ``sref`` (B, H, R) and per-scenario ``tref`` (B, RT); the return is
+    then (xs, us, costs (B, A))."""
+    if not _route(x0, xbar, ubar, K, d):
+        return rollout_closed_plain(plan, substeps, x0, xbar, ubar, K, d,
+                                    alphas, cost, sref, tref)
+    nx, nu = 2 * plan.nv, plan.nu
+    B, H, A = ubar.shape[0], ubar.shape[1], len(alphas)
+    R = 0 if sref is None else sref.shape[-1]
+    RT = 0 if tref is None else tref.shape[-1]
+    dev = x0.device
+    ins = [torch.tensor(alphas, dtype=torch.float32, device=dev),
+           _bfast(x0), _bfast(xbar[:, :H]), _bfast(ubar), _bfast(K),
+           _bfast(d)]
+    ins += [_bfast(sref) if R else None, _bfast(tref) if RT else None]
+    xs = torch.empty(A, H + 1, nx, B, device=dev)
+    us = torch.empty(A, H, nu, B, device=dev)
+    costs = torch.empty(A, B, device=dev)
+    ptrs = [0 if t is None else t.data_ptr() for t in ins + [xs, us, costs]]
+    _build.call(_closed_src(plan, cost, R, RT), *ptrs, B, H, A, substeps,
+                _stream(x0))
+    rollout_closed.launches += 1
+    xs, us = _bslow(xs), _bslow(us)
+    if cost is None:
+        return xs, us
+    return xs, us, costs.t().contiguous()
+
+
+rollout_closed.launches = 0
