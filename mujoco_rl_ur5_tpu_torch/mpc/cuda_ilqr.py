@@ -6,16 +6,20 @@ its kernels replaced by the port's:
   * open-loop rollout     -> physics/cuda_chain.rollout_open   (1 launch)
   * linearization         -> physics/cuda_chain.lin_fd_fast    (1 lin_fd
     launch: one-substep forward differences composed by matmul)
-  * stage quadratization  -> ``quad`` (plain torch; the tracking cost is
-    already quadratic: diagonal constants and linear terms)
+  * stage quadratization  -> ``quad``: in reach mode
+    physics/cuda_chain.ee_quad_gn (1 launch: FK, geometric Jacobians and
+    Gauss-Newton blocks for all B x H knots); in track mode plain torch
+    (the tracking cost is already quadratic: diagonal constants and linear
+    terms). The terminal quadratization and the start cost are plain torch
   * Riccati backward pass -> mpc/cuda_lqr.backward             (1 launch)
   * 5-alpha line search   -> physics/cuda_chain.rollout_closed (1 launch,
     candidate costs fused)
 
 then the best alpha per scenario (first index on ties, as ``argmin``), the
 improved mask and the per-scenario Levenberg-Marquardt schedule. A cold
-solve launches rollout_open once, lin_fd and backward iters+1 times and
-rollout_closed iters times.
+solve launches rollout_open once, lin_fd and backward (and, in reach mode,
+ee_quad_gn) iters+1 times and rollout_closed iters times. One solver
+serves both modes: the mode is in the closures and the fused cost pair.
 
 Semantics per scenario match the JAX solver, with the same two deviations
 from the exact iLQR (forward-difference Jacobians, the plan's baked

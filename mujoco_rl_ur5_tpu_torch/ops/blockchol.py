@@ -3,7 +3,7 @@
 The port's copy of the JAX package's ops/blockchol: the factorization and
 substitution loops are unrolled over the static block width, so a batch of
 (..., n, n) blocks costs a few elementwise ops per entry. These are the
-plain versions the Riccati pass (mpc/lqr.py) and the chain step
+plain versions the Riccati passes (mpc/lqr.py) and the chain step
 (physics/chain.py) use; the kernels carry their own unrolled copies.
 All functions take arbitrary leading batch dims.
 """
@@ -23,7 +23,9 @@ def chol_small(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
         if j:
             Lmat = torch.stack(cols, -1)                   # (..., n, j)
             a_j = a_j - torch.einsum("...ik,...k->...i", Lmat, Lmat[..., j, :])
-        d = torch.sqrt(torch.clamp_min(a_j[..., j], eps))
+        # clamp before indexing: a 0-dim pivot combined with the Python
+        # float would get a float64 tangent under torch.func.jvp
+        d = torch.sqrt(torch.clamp_min(a_j, eps)[..., j])
         col = a_j / d[..., None]
         col = torch.cat([torch.zeros_like(col[..., :j]), d[..., None],
                          col[..., j + 1:]], -1)
@@ -59,6 +61,31 @@ def solve_upper_t(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 def cho_solve_small(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve A X = B given L = chol_small(A); B (..., n, m)."""
     return solve_upper_t(L, solve_lower(L, B))
+
+
+def solve_general_small(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve A X = B for general (non-symmetric) blocks A (..., n, n),
+    B (..., n, m) by unrolled Gauss-Jordan elimination with partial
+    pivoting (first largest entry, as ``argmax``). The parallel Riccati
+    pass (mpc/lqr.py) inverts its (I + C J) blocks with it."""
+    n = A.shape[-1]
+    M = torch.cat([A, B], -1)                              # (..., n, n+m)
+    idx = torch.arange(n, device=A.device)
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    for k in range(n):
+        col = torch.where(idx >= k, M[..., :, k].abs(), -1.0)
+        P = eye[torch.argmax(col, -1)]                     # (..., n) one-hot
+        rowp = torch.einsum("...n,...nm->...m", P, M)
+        rowk = M[..., k, :]
+        e_k = eye[k]
+        # swap rows k <-> pivot (the corrections cancel when pivot == k)
+        M = (M + e_k[:, None] * (rowp - rowk)[..., None, :]
+             + P[..., None] * (rowk - rowp)[..., None, :])
+        rk = M[..., k, :] / M[..., k, k][..., None]
+        f = torch.where(idx == k, 0.0, M[..., :, k])
+        M = M - f[..., None] * rk[..., None, :]
+        M = torch.where((idx == k)[:, None], rk[..., None, :], M)
+    return M[..., n:]
 
 
 def solve_spd_scaled(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,13 @@ implicit spring) are re-expressed for a static chain:
     ``chain_step`` are the plain torch functions over any leading batch
     dims. They are the reference for the generated substep in
     physics/cuda_chain.py, which emits the same physics as straight-line
-    code with the constants folded.
+    code with the constants folded;
+  * ``chain_body_pos``, ``chain_body_xaxis`` and ``chain_ee_geom`` give one
+    body frame's world position, X axis and their geometric Jacobians (the
+    reach costs of mpc/grasp_mpc.py).
+
+Every function is free of in-place writes and data-dependent branches, so
+``torch.func`` transforms (``vmap``, ``jacfwd``) pass through them.
 
 The port's counterpart of the JAX package's physics/chain.py; the plan's
 fields and their meaning are identical (mujoco_rl_ur5_tpu_torch/carry.py
@@ -21,6 +27,7 @@ builds one from the JAX plan's arrays).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -200,8 +207,19 @@ def make_chain_plan(model: Model) -> ChainPlan:
     return plan
 
 
-def _const(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=like.dtype, device=like.device)
+@functools.lru_cache(maxsize=None)
+def _uploaded(data: bytes, shape, dtype, device) -> torch.Tensor:
+    a = np.frombuffer(data, np.float64).reshape(shape)
+    return torch.as_tensor(a.copy(), dtype=dtype, device=device)
+
+
+def const(a, like: torch.Tensor) -> torch.Tensor:
+    """A model constant as a tensor of like's type on like's device. Each
+    distinct value is converted and copied to the device once and kept: the
+    FK asks for the same few dozen constants on every call. The result is
+    shared, so it is never written in place."""
+    a = np.asarray(a, np.float64)
+    return _uploaded(a.tobytes(), a.shape, like.dtype, like.device)
 
 
 def chain_fk(plan: ChainPlan, qpos: torch.Tensor):
@@ -216,34 +234,71 @@ def chain_fk(plan: ChainPlan, qpos: torch.Tensor):
         ps = int(plan.parent_slot[i])
         if ps >= 0:
             pr = xrot[ps]
-            p_pre = xpos[ps] + pr @ _const(plan.body_pos[i], qpos)
-            r_pre = pr @ _const(plan.body_rot[i], qpos)
+            p_pre = xpos[ps] + pr @ const(plan.body_pos[i], qpos)
+            r_pre = pr @ const(plan.body_rot[i], qpos)
         else:
             pr0 = plan.parent_pose[i, 3:].reshape(3, 3)
-            p_pre = _const(plan.parent_pose[i, :3] + pr0 @ plan.body_pos[i],
+            p_pre = const(plan.parent_pose[i, :3] + pr0 @ plan.body_pos[i],
                            qpos).expand(*batch, 3)
-            r_pre = _const(pr0 @ plan.body_rot[i], qpos).expand(*batch, 3, 3)
+            r_pre = const(pr0 @ plan.body_rot[i], qpos).expand(*batch, 3, 3)
         d = int(plan.jnt_dof[i])
         if d >= 0:
-            th = qpos[..., int(plan.qadr[d])] - float(plan.jnt_ref[i])
+            # (a tensor, not a float: see chain_step on torch.func.jvp)
+            th = qpos[..., int(plan.qadr[d])] - const(plan.jnt_ref[i], qpos)
             ax = plan.jnt_axis[i]
             K = np.array([[0.0, -ax[2], ax[1]], [ax[2], 0.0, -ax[0]],
                           [-ax[1], ax[0], 0.0]])
             aa = np.outer(ax, ax)
-            rj = (torch.cos(th)[..., None, None] * _const(np.eye(3) - aa, qpos)
-                  + torch.sin(th)[..., None, None] * _const(K, qpos)
-                  + _const(aa, qpos))
-            jp = _const(plan.jnt_pos[i], qpos)
+            rj = (torch.cos(th)[..., None, None] * const(np.eye(3) - aa, qpos)
+                  + torch.sin(th)[..., None, None] * const(K, qpos)
+                  + const(aa, qpos))
+            jp = const(plan.jnt_pos[i], qpos)
             anchor[d] = p_pre + r_pre @ jp
             p = p_pre + (r_pre @ (jp - rj @ jp)[..., None])[..., 0]
             r = r_pre @ rj
-            axis_w[d] = r @ _const(ax, qpos)
+            axis_w[d] = r @ const(ax, qpos)
         else:
             p, r = p_pre, r_pre
         xpos.append(p)
         xrot.append(r)
     return (torch.stack(xpos, -2), torch.stack(xrot, -3),
             torch.stack(anchor, -2), torch.stack(axis_w, -2))
+
+
+def body_slot(plan: ChainPlan, body_id: int) -> int:
+    """The plan's slot of a compiled-model body id."""
+    return int(np.nonzero(plan.body_ids == body_id)[0][0])
+
+
+def chain_body_pos(plan: ChainPlan, qpos: torch.Tensor,
+                   body_id: int) -> torch.Tensor:
+    """World position (..., 3) of one body frame (e.g. ee_link)."""
+    return chain_fk(plan, qpos)[0][..., body_slot(plan, body_id), :]
+
+
+def chain_body_xaxis(plan: ChainPlan, qpos: torch.Tensor,
+                     body_id: int) -> torch.Tensor:
+    """World direction (..., 3) of one body frame's X axis; for ee_link the
+    gripper approach axis."""
+    return chain_fk(plan, qpos)[1][..., body_slot(plan, body_id), :, 0]
+
+
+def chain_ee_geom(plan: ChainPlan, qpos: torch.Tensor, body_id: int):
+    """Position, frame X axis and their geometric Jacobians from one FK
+    pass: J_pos[:, d] = z_d x (p - anchor_d), J_axis[:, d] = z_d x xaxis for
+    the dofs d that move the body (zero otherwise). Equal to the autodiff
+    Jacobians of chain_body_pos / chain_body_xaxis.
+
+    Returns (p (..., 3), xaxis (..., 3), J_pos (..., 3, nv),
+    J_axis (..., 3, nv))."""
+    slot = body_slot(plan, body_id)
+    xpos, xrot, anchor, ax = chain_fk(plan, qpos)
+    p = xpos[..., slot, :]
+    xa = xrot[..., slot, :, 0]
+    mask = const(plan.anc_dof[slot], qpos)[:, None]           # (nv, 1)
+    Jp = torch.cross(ax, p[..., None, :] - anchor, dim=-1) * mask
+    Ja = torch.cross(ax, xa[..., None, :].expand_as(ax), dim=-1) * mask
+    return p, xa, Jp.transpose(-1, -2), Ja.transpose(-1, -2)
 
 
 def _imul(inert: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -264,30 +319,30 @@ def chain_mass_bias(plan: ChainPlan, qpos: torch.Tensor, qvel: torch.Tensor):
     """(M (..., nv, nv) incl. armature, qfrc_bias (..., nv)): CRBA and RNE
     at qacc = 0 over the baked topology masks."""
     xpos, xrot, anchor, ax = chain_fk(plan, qpos)
-    org = _const(plan.org, qpos)
+    org = const(plan.org, qpos)
     cdof = torch.cat([ax, torch.cross(anchor - org, ax, dim=-1)], -1)
-    ri = xrot @ _const(plan.irot, qpos)
-    icom = (ri * _const(plan.idiag, qpos)[:, None, :]) @ ri.transpose(-1, -2)
-    com = xpos + (xrot @ _const(plan.ipos, qpos)[..., None])[..., 0]
+    ri = xrot @ const(plan.irot, qpos)
+    icom = (ri * const(plan.idiag, qpos)[:, None, :]) @ ri.transpose(-1, -2)
+    com = xpos + (xrot @ const(plan.ipos, qpos)[..., None])[..., 0]
     c = com - org
-    mass = _const(plan.mass, qpos)
+    mass = const(plan.mass, qpos)
     cc = c[..., :, None] * c[..., None, :]
     c2 = (c * c).sum(-1)[..., None, None]
-    iorg = icom + mass[:, None, None] * (c2 * _const(np.eye(3), qpos) - cc)
+    iorg = icom + mass[:, None, None] * (c2 * const(np.eye(3), qpos) - cc)
     cinert = torch.cat([
         mass.expand(c.shape[:-1])[..., None], mass[:, None] * c,
         iorg[..., 0, 0, None], iorg[..., 1, 1, None], iorg[..., 2, 2, None],
         iorg[..., 0, 1, None], iorg[..., 0, 2, None], iorg[..., 1, 2, None],
     ], -1)                                                  # (..., nmov, 10)
 
-    crb = _const(plan.sub_body, qpos) @ cinert
+    crb = const(plan.sub_body, qpos) @ cinert
     fmom = _imul(crb[..., plan.dof_slot, :], cdof)
-    mlow = _const(plan.m_mask, qpos) * (fmom @ cdof.transpose(-1, -2))
+    mlow = const(plan.m_mask, qpos) * (fmom @ cdof.transpose(-1, -2))
     M = (mlow + mlow.transpose(-1, -2) - torch.diag_embed(
         torch.diagonal(mlow, dim1=-2, dim2=-1))
-        + torch.diag(_const(plan.armature, qpos)))
+        + torch.diag(const(plan.armature, qpos)))
 
-    vbody = _const(plan.anc_dof, qpos) @ (cdof * qvel[..., None])
+    vbody = const(plan.anc_dof, qpos) @ (cdof * qvel[..., None])
     zero6 = torch.zeros_like(vbody[..., 0, :])
     parent_v = torch.stack([vbody[..., int(s), :] if s >= 0 else zero6
                             for s in plan.dof_parent_slot], -2)
@@ -297,14 +352,14 @@ def chain_mass_bias(plan: ChainPlan, qpos: torch.Tensor, qvel: torch.Tensor):
         cross(parent_v[..., :3], cdof[..., 3:], dim=-1)
         + cross(parent_v[..., 3:], cdof[..., :3], dim=-1)], -1)
     a0 = torch.cat([torch.zeros(3, dtype=qpos.dtype, device=qpos.device),
-                    -_const(plan.gravity, qpos)])
-    abody = a0 + _const(plan.anc_dof, qpos) @ (cdofdot * qvel[..., None])
+                    -const(plan.gravity, qpos)])
+    abody = a0 + const(plan.anc_dof, qpos) @ (cdofdot * qvel[..., None])
     iv = _imul(cinert, vbody)
     fb = _imul(cinert, abody) + torch.cat([
         cross(vbody[..., :3], iv[..., :3], dim=-1)
         + cross(vbody[..., 3:], iv[..., 3:], dim=-1),
         cross(vbody[..., :3], iv[..., 3:], dim=-1)], -1)
-    fsub = _const(plan.dof_sub_body, qpos) @ fb
+    fsub = const(plan.dof_sub_body, qpos) @ fb
     return M, (cdof * fsub).sum(-1)
 
 
@@ -312,9 +367,9 @@ def chain_hold_ctrl(plan: ChainPlan, qpos: torch.Tensor) -> torch.Tensor:
     """Gravity-compensation controls (the iLQR warm start): bias / gear,
     clipped to the actuator range."""
     _, bias = chain_mass_bias(plan, qpos, torch.zeros_like(qpos))
-    u = bias[..., plan.act_dof] / _const(plan.gear, qpos)
-    return torch.clamp(u, _const(plan.ctrlrange[:, 0], qpos),
-                       _const(plan.ctrlrange[:, 1], qpos))
+    u = bias[..., plan.act_dof] / const(plan.gear, qpos)
+    return torch.clamp(u, const(plan.ctrlrange[:, 0], qpos),
+                       const(plan.ctrlrange[:, 1], qpos))
 
 
 def chain_step(plan: ChainPlan, qpos: torch.Tensor, qvel: torch.Tensor,
@@ -324,31 +379,36 @@ def chain_step(plan: ChainPlan, qpos: torch.Tensor, qvel: torch.Tensor,
     -> (qpos2, qvel2)."""
     h = plan.timestep
     M, bias = chain_mass_bias(plan, qpos, qvel)
-    c = torch.clamp(ctrl, _const(plan.ctrlrange[:, 0], qpos),
-                    _const(plan.ctrlrange[:, 1], qpos))
-    tau = (c * _const(plan.gear, qpos)) @ _const(plan.act_mat, qpos).T
-    damp = _const(plan.damping, qpos)
+    c = torch.clamp(ctrl, const(plan.ctrlrange[:, 0], qpos),
+                    const(plan.ctrlrange[:, 1], qpos))
+    tau = (c * const(plan.gear, qpos)) @ const(plan.act_mat, qpos).T
+    damp = const(plan.damping, qpos)
     qfrc = tau - bias - damp * qvel
     a = M + h * torch.diag(damp)
     # equality springs: residual r = dq1 - poly(dq2), force -(k r +
     # (h k + c_d) rdot) along G = e_d1 - dpoly e_d2; the velocity term goes
-    # implicit like the joint damping
+    # implicit like the joint damping. Model constants enter as tensors,
+    # not Python floats: torch.func.jvp gives a 0-dim tensor combined with a
+    # Python float a float64 tangent
     for e in range(len(plan.eq_d1)):
         d1, d2 = int(plan.eq_d1[e]), int(plan.eq_d2[e])
-        pc = [float(p) for p in plan.eq_poly[e]]
-        x2 = qpos[..., d2] - float(plan.eq_q02[e])
-        poly = (pc[0] + pc[1] * x2 + pc[2] * x2 ** 2 + pc[3] * x2 ** 3
-                + pc[4] * x2 ** 4)
-        dpoly = pc[1] + 2 * pc[2] * x2 + 3 * pc[3] * x2 ** 2 \
-            + 4 * pc[4] * x2 ** 3
-        r = (qpos[..., d1] - float(plan.eq_q01[e])) - poly
-        rdot = qvel[..., d1] - dpoly * qvel[..., d2]
+        pc = plan.eq_poly[e]
         k, cd = float(plan.eq_kc[e, 0]), float(plan.eq_kc[e, 1])
-        g = torch.zeros_like(qpos)
-        g[..., d1] = 1.0
-        g[..., d2] = g[..., d2] - dpoly
-        qfrc = qfrc - (k * r + (h * k + cd) * rdot)[..., None] * g
-        a = a + (h * (h * k + cd)) * (g[..., :, None] * g[..., None, :])
+        p = const(pc, qpos)
+        dp = const([pc[1], 2 * pc[2], 3 * pc[3], 4 * pc[4]], qpos)
+        x2 = qpos[..., d2] - const(plan.eq_q02[e], qpos)
+        poly = p[0] + p[1] * x2 + p[2] * x2 ** 2 + p[3] * x2 ** 3 \
+            + p[4] * x2 ** 4
+        dpoly = dp[0] + dp[1] * x2 + dp[2] * x2 ** 2 + dp[3] * x2 ** 3
+        r = (qpos[..., d1] - const(plan.eq_q01[e], qpos)) - poly
+        rdot = qvel[..., d1] - dpoly * qvel[..., d2]
+        e1 = const(np.eye(plan.nv)[d1], qpos)
+        e2 = const(np.eye(plan.nv)[d2], qpos)
+        g = e1 - dpoly[..., None] * e2
+        qfrc = qfrc - (const(k, qpos) * r
+                       + const(h * k + cd, qpos) * rdot)[..., None] * g
+        a = a + const(h * (h * k + cd), qpos) * (g[..., :, None]
+                                                  * g[..., None, :])
     qacc = solve_spd_scaled(a, qfrc)
     qvel2 = qvel + h * qacc
     return qpos + h * qvel2, qvel2

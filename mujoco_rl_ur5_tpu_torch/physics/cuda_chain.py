@@ -21,6 +21,10 @@ Hopper:
     ``lin_fd_fast``) and ``rollout_closed``. Each calls the one-substep
     function inside runtime loops over substeps and knots, so nvcc compiles
     one substep, as Mosaic did for the TPU kernels.
+  * **Reach quadratization.** ``make_ee_quad`` builds the Gauss-Newton
+    blocks of the end-effector reach cost (FK, geometric Jacobians, outer
+    products) over the same entries; ``ee_quad_header`` emits it
+    (``chain_ee_quad.cuh``) for the ``ee_quad_gn`` kernel.
 
 Every kernel wrapper has its plain version beside it: a CPU tensor runs
 the plain version; a CUDA tensor launches the kernel (and counts the
@@ -530,6 +534,76 @@ def cost_header(cost, nv: int, nu: int, R: int, RT: int) -> Generated:
     return Generated(text, ops)
 
 
+def make_ee_quad(plan: ChainPlan, slot: int, off: tuple, w_ee: float,
+                 w_orient: float, w_posture: float, home: tuple):
+    """quad(q, tgt) -> (Xu, g) over entry lists: the Gauss-Newton blocks of
+    the reach stage cost at body slot ``slot``.
+
+        Xq = w_ee J'J + w_orient Ja'Ja + w_posture I
+        gq = w_ee J'e + w_orient Ja'a + w_posture (q - home)
+
+    with e = p - off - tgt, a = xaxis - (0, 0, -1) and the geometric
+    Jacobians J[:, d] = z_d x (p - anchor_d), Ja[:, d] = z_d x xaxis for the
+    dofs that move the body. ``Xu`` holds the nv (nv + 1) / 2 distinct
+    entries of the symmetric Xq, row by row from the diagonal; dofs that do
+    not move the body give constant entries (floats)."""
+    nv = plan.nv
+    fk = make_fk(plan)
+    offc = [float(o) for o in off]
+    homec = [float(h) for h in home]
+    anc = [bool(a) for a in plan.anc_dof[slot]]
+
+    def quad(q: Sequence, tgt: Sequence):
+        xpos, xrot, anchor, axis_w = fk(q)
+        praw = xpos[slot]
+        e = [ssub(ssub(praw[i], offc[i]), tgt[i]) for i in range(3)]
+        xa = [xrot[slot][i][0] for i in range(3)]
+        a = [xa[0], xa[1], sadd(xa[2], 1.0)]
+        Jp, Ja = [], []
+        for d in range(nv):
+            if anc[d] and axis_w[d] is not None:
+                Jp.append(scross(axis_w[d], svsub(praw, anchor[d])))
+                Ja.append(scross(axis_w[d], xa))
+            else:
+                Jp.append([0.0, 0.0, 0.0])
+                Ja.append([0.0, 0.0, 0.0])
+        Xu = [sadd(smul(w_ee, sdot(Jp[i], Jp[j])),
+                   smul(w_orient, sdot(Ja[i], Ja[j])),
+                   w_posture if i == j else 0.0)
+              for i in range(nv) for j in range(i, nv)]
+        g = [sadd(smul(w_ee, sdot(Jp[i], e)), smul(w_orient, sdot(Ja[i], a)),
+                  smul(w_posture, ssub(q[i], homec[i]))) for i in range(nv)]
+        return Xu, g
+
+    return quad
+
+
+@functools.lru_cache(maxsize=None)
+def _ee_quad(plan: ChainPlan, *cfg):
+    return make_ee_quad(plan, *cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def ee_quad_header(plan: ChainPlan, *cfg) -> Generated:
+    """``chain_ee_quad.cuh``: the reach quadratization as a ``__device__``
+    function over register arrays, with the weights, offset and home of
+    ``cfg`` (the arguments of make_ee_quad after the plan) folded."""
+    nv = plan.nv
+    em = _Emitter()
+    Xu, g = _ee_quad(plan, *cfg)(em.inputs("q", nv), em.inputs("tg", 3))
+    stores = ([f"  Xu[{i}] = {_lit(x)};" for i, x in enumerate(Xu)]
+              + [f"  g[{i}] = {_lit(x)};" for i, x in enumerate(g)])
+    text = "\n".join([
+        "// Generated by mujoco_rl_ur5_tpu_torch/physics/cuda_chain.py",
+        "#pragma once",
+        f"#define CHAIN_NV {nv}",
+        "__device__ __forceinline__ void chain_ee_quad(",
+        "    const float* __restrict__ q, const float* __restrict__ tg,",
+        "    float* __restrict__ Xu, float* __restrict__ g) {",
+        *em.lines, *stores, "}", ""])
+    return Generated(text, {"quad": em.ops})
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -555,10 +629,30 @@ def _closed_src(plan: ChainPlan, cost, R: int, RT: int) -> _build.KernelSource:
          "chain_cost.cuh": cost_header(cost, plan.nv, plan.nu, R, RT).text})
 
 
+@functools.lru_cache(maxsize=None)
+def _quad_src(plan: ChainPlan, *cfg) -> _build.KernelSource:
+    return _build.KernelSource(
+        "chain_ee_quad_gn", "ee_quad_gn", (_P, _P, _P, _P, _I, _I, _P),
+        {"chain_ee_quad.cuh": ee_quad_header(plan, *cfg).text})
+
+
 def kernel_sources(plan: ChainPlan, cost=None, R: int = 0, RT: int = 0):
     """The three chain kernels' sources for a plan (and line-search cost),
     for building them together with ``_build.build_many``."""
     return [_open_src(plan), _lin_src(plan), _closed_src(plan, cost, R, RT)]
+
+
+def _quad_cfg(slot, off, w_ee, w_orient, w_posture, home) -> tuple:
+    return (int(slot), tuple(float(o) for o in off), float(w_ee),
+            float(w_orient), float(w_posture), tuple(float(h) for h in home))
+
+
+def ee_quad_source(plan: ChainPlan, slot: int, off, w_ee: float,
+                   w_orient: float, w_posture: float,
+                   home) -> _build.KernelSource:
+    """The ``ee_quad_gn`` kernel's source for a plan and a reach cost."""
+    return _quad_src(plan, *_quad_cfg(slot, off, w_ee, w_orient, w_posture,
+                                      home))
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -768,3 +862,52 @@ def rollout_closed(plan: ChainPlan, substeps: int, x0: torch.Tensor,
 
 
 rollout_closed.launches = 0
+
+
+def ee_quad_gn_plain(plan: ChainPlan, slot: int, off, w_ee: float,
+                     w_orient: float, w_posture: float, home,
+                     xs: torch.Tensor, targets: torch.Tensor):
+    nv = plan.nv
+    quad = _ee_quad(plan, *_quad_cfg(slot, off, w_ee, w_orient, w_posture,
+                                     home))
+    Xu, g = quad([xs[..., i] for i in range(nv)],
+                 [targets[:, None, i] for i in range(3)])
+    like = xs[..., 0]
+    full = [[None] * nv for _ in range(nv)]
+    it = iter(Xu)
+    for i in range(nv):
+        for j in range(i, nv):
+            full[i][j] = full[j][i] = next(it)
+    Xq = torch.stack([_stack(row, like) for row in full], -2)
+    return Xq, _stack(g, like)
+
+
+def ee_quad_gn(plan: ChainPlan, slot: int, off, w_ee: float, w_orient: float,
+               w_posture: float, home, xs: torch.Tensor,
+               targets: torch.Tensor):
+    """Gauss-Newton stage quadratization of the end-effector reach cost (see
+    make_ee_quad) for all B x H knots in one launch: xs (B, H, nx),
+    targets (B, 3) -> Xq (B, H, nq, nq), gq (B, H, nq). The velocity and
+    control blocks are diagonal constants the caller adds."""
+    if not _route(xs, targets):
+        return ee_quad_gn_plain(plan, slot, off, w_ee, w_orient, w_posture,
+                                home, xs, targets)
+    nv = plan.nv
+    B, H = xs.shape[0], xs.shape[1]
+    if xs.shape != (B, H, 2 * nv) or targets.shape != (B, 3):
+        raise ValueError(f"ee_quad_gn: xs {tuple(xs.shape)} and targets "
+                         f"{tuple(targets.shape)} are not (B, H, {2 * nv}) "
+                         "and (B, 3)")
+    N = B * H
+    qt = xs.reshape(N, 2 * nv)[:, :nv].t().contiguous()      # (nv, N)
+    tt = _bfast(targets)                                     # (3, B)
+    Xq = torch.empty(nv, nv, N, device=xs.device)
+    gq = torch.empty(nv, N, device=xs.device)
+    src = ee_quad_source(plan, slot, off, w_ee, w_orient, w_posture, home)
+    _build.call(src, qt.data_ptr(), tt.data_ptr(), Xq.data_ptr(),
+                gq.data_ptr(), N, H, _stream(xs))
+    ee_quad_gn.launches += 1
+    return (_bslow(Xq).reshape(B, H, nv, nv), _bslow(gq).reshape(B, H, nv))
+
+
+ee_quad_gn.launches = 0

@@ -31,7 +31,7 @@ from mujoco_rl_ur5_tpu.scene.reduce import load_arm_model as jax_load_arm
 from mujoco_rl_ur5_tpu_torch import ASSET, _build
 from mujoco_rl_ur5_tpu_torch.carry import PLAN_FIELDS, plan_from_arrays
 from mujoco_rl_ur5_tpu_torch.mpc import cuda_lqr
-from mujoco_rl_ur5_tpu_torch.mpc.grasp_mpc import GraspMPC
+from mujoco_rl_ur5_tpu_torch.mpc.grasp_mpc import EE_OFFSET, GraspMPC
 from mujoco_rl_ur5_tpu_torch.physics import cuda_chain as cc
 from mujoco_rl_ur5_tpu_torch.physics.chain import make_chain_plan
 from mujoco_rl_ur5_tpu_torch.scene.reduce import load_arm_model
@@ -47,7 +47,10 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert len(mods) >= 15
+    assert len(mods) >= 18
+    for m in ("mpc.ilqr", "mpc.lqr", "mpc.cuda_ilqr", "mpc.grasp_mpc",
+              "physics.chain", "physics.cuda_chain", "ops.blockchol"):
+        assert "mujoco_rl_ur5_tpu_torch." + m in mods
     code = (
         "import sys\n"
         f"for m in {mods!r}:\n"
@@ -97,11 +100,13 @@ def _inputs(mpc, B=3, seed=0):
 
 def _launches():
     return (cc.rollout_open.launches, cc.lin_fd.launches,
-            cc.rollout_closed.launches, cuda_lqr.backward.launches)
+            cc.rollout_closed.launches, cuda_lqr.backward.launches,
+            cc.ee_quad_gn.launches)
 
 
 @pytest.mark.parametrize("kernel", ["rollout_open", "lin_fd",
-                                    "rollout_closed", "backward"])
+                                    "rollout_closed", "backward",
+                                    "ee_quad_gn"])
 def test_cpu_tensors_route_to_the_plain_version(mpc, kernel):
     rng, t, x0, us = _inputs(mpc)
     plan, S, H = mpc.plan, mpc.substeps, mpc.H
@@ -115,6 +120,10 @@ def test_cpu_tensors_route_to_the_plain_version(mpc, kernel):
                                                   xs[:, :-1, 8:]))
     XH, qH = mpc._track_term_quad(xs[:, -1], (xs[:, -1, :8], xs[:, -1, 8:]))
     reg = t([1e-6, 1e-3, 1.0])
+    w = mpc.w
+    quad_args = (plan, mpc.ee_slot, EE_OFFSET, w.w_ee_run, w.w_orient,
+                 w.w_posture, mpc.home, xs[:, :-1],
+                 t([[0.0, -0.6, 1.0]] * B))
     calls = {
         "rollout_open": (cc.rollout_open, cc.rollout_open_plain,
                          (plan, S, x0, us)),
@@ -123,6 +132,7 @@ def test_cpu_tensors_route_to_the_plain_version(mpc, kernel):
                            (plan, S, x0, xs, us, K, d, (1.0, 0.3))),
         "backward": (cuda_lqr.backward, cuda_lqr.backward_plain,
                      (F, L, X, q, U, r, XH, qH, reg)),
+        "ee_quad_gn": (cc.ee_quad_gn, cc.ee_quad_gn_plain, quad_args),
     }
     wrapper, plain, args = calls[kernel]
     before = _launches()
@@ -139,6 +149,21 @@ def test_tensor_on_another_device_raises(mpc):
     us = torch.zeros(2, mpc.H, 7, device="meta")
     with pytest.raises(RuntimeError, match="no kernel for device"):
         cc.rollout_open(mpc.plan, mpc.substeps, x0, us)
+    w = mpc.w
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        cc.ee_quad_gn(mpc.plan, mpc.ee_slot, EE_OFFSET, w.w_ee_run,
+                      w.w_orient, w.w_posture, mpc.home,
+                      torch.zeros(2, mpc.H, 16, device="meta"),
+                      torch.zeros(2, 3, device="meta"))
+
+
+def test_every_kernel_source_is_in_the_package(mpc):
+    names = {s.name for s in mpc.kernel_sources()}
+    assert names == {"chain_rollout_open", "chain_lin_fd",
+                     "chain_rollout_closed", "lqr_backward",
+                     "chain_ee_quad_gn"}
+    for n in names:
+        assert os.path.exists(os.path.join(_build.CSRC, n + ".cu")), n
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
