@@ -44,6 +44,7 @@ class KernelSource:
     entry: str                     # its extern "C" launcher
     argtypes: tuple
     headers: dict = field(default_factory=dict)   # file name -> text
+    flags: tuple = ()              # nvcc flags beyond NVCC_FLAGS
 
     @functools.cached_property
     def text(self) -> str:
@@ -52,7 +53,7 @@ class KernelSource:
 
     @functools.cached_property
     def key(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(NVCC_FLAGS + self.flags).encode())
         h.update(self.text.encode())
         for n in sorted(self.headers):
             h.update(n.encode() + b"\0" + self.headers[n].encode())
@@ -88,7 +89,7 @@ def build_many(sources: list[KernelSource]) -> list[ctypes.CDLL]:
             tmp = os.path.join(d, f"lib.so.tmp{os.getpid()}")
             log = open(os.path.join(d, "ptxas.log"), "w")
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-I", d, "-o", tmp, cu],
+                [_nvcc(), *NVCC_FLAGS, *src.flags, "-I", d, "-o", tmp, cu],
                 stdout=log, stderr=subprocess.STDOUT)
             todo.append((src, key, so, tmp, proc, log))
     for *_, proc, log in todo:

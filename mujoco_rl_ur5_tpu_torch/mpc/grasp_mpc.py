@@ -41,9 +41,9 @@ from mujoco_rl_ur5_tpu_torch.physics.chain import (
 from mujoco_rl_ur5_tpu_torch.physics.cuda_chain import (
     ee_quad_gn, make_fk, sadd, smul, ssub,
 )
-from mujoco_rl_ur5_tpu_torch.scene.compile import load_model
+from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
 from mujoco_rl_ur5_tpu_torch.scene.mjcf import JNT_HINGE
-from mujoco_rl_ur5_tpu_torch.scene.model import Model
+from mujoco_rl_ur5_tpu_torch.scene.model import Model, resolve_device
 from mujoco_rl_ur5_tpu_torch.scene.reduce import load_arm_model
 
 
@@ -65,23 +65,6 @@ class MPCWeights(NamedTuple):
     w_track_vel: float = 0.5
 
 
-def resolve_device(device) -> torch.device:
-    """The device to plan on; CUDA that is absent raises, never falls back.
-    On CUDA, TF32 is switched off for matmuls and cuDNN: the solver's
-    Jacobian composition and references need full float32."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("GraspMPC: device 'cuda' was asked for but "
-                               "torch.cuda.is_available() is False; pass "
-                               "device='cpu' to run the plain versions")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise RuntimeError(f"GraspMPC: unsupported device {dev}")
-    return dev
-
-
 class GraspMPC:
     """Batched iLQR grasp planner bound to an arm submodel."""
 
@@ -93,7 +76,7 @@ class GraspMPC:
         planning runs on ``arm_model`` (see from_scene). ``parallel`` and
         ``lin_chunks`` set the Riccati pass and the linearization chunks of
         the per-instance ``solve`` / ``track`` (mpc/ilqr.py)."""
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "GraspMPC")
         self.full = model
         self.arm = arm_model if arm_model is not None else model
         t = self.arm.topo
@@ -124,7 +107,7 @@ class GraspMPC:
 
     @classmethod
     def from_scene(cls, path: str, **kw) -> "GraspMPC":
-        return cls(load_model(path), arm_model=load_arm_model(path), **kw)
+        return cls(compile_file(path), arm_model=load_arm_model(path), **kw)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)

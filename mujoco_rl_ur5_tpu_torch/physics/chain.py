@@ -27,13 +27,13 @@ builds one from the JAX plan's arrays).
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from mujoco_rl_ur5_tpu_torch.ops.blockchol import solve_spd_scaled
+from mujoco_rl_ur5_tpu_torch.ops.consts import const
 from mujoco_rl_ur5_tpu_torch.scene.mjcf import JNT_HINGE
 from mujoco_rl_ur5_tpu_torch.scene.model import Model
 
@@ -205,21 +205,6 @@ def make_chain_plan(model: Model) -> ChainPlan:
         plan.eq_q02 = f64(model.qpos0)[np.asarray(t.eq_j2_qadr)]
         plan.eq_poly, plan.eq_kc = poly, kc
     return plan
-
-
-@functools.lru_cache(maxsize=None)
-def _uploaded(data: bytes, shape, dtype, device) -> torch.Tensor:
-    a = np.frombuffer(data, np.float64).reshape(shape)
-    return torch.as_tensor(a.copy(), dtype=dtype, device=device)
-
-
-def const(a, like: torch.Tensor) -> torch.Tensor:
-    """A model constant as a tensor of like's type on like's device. Each
-    distinct value is converted and copied to the device once and kept: the
-    FK asks for the same few dozen constants on every call. The result is
-    shared, so it is never written in place."""
-    a = np.asarray(a, np.float64)
-    return _uploaded(a.tobytes(), a.shape, like.dtype, like.device)
 
 
 def chain_fk(plan: ChainPlan, qpos: torch.Tensor):

@@ -1,21 +1,26 @@
 """MJCF (MuJoCo XML) parser -> plain-Python scene spec, the subset the arm
-planner needs.
+planner and the contact step need.
 
 Host-side, numpy-only; the port's copy of the JAX package's parser cut to
-what the arm submodel reads:
+what the arm submodel and the contact scenes read:
 
-  * ``<compiler angle inertiafromgeom>`` and ``<option timestep gravity>``;
-  * nested ``<default>`` classes (joint and motor attributes) and
+  * ``<compiler angle inertiafromgeom>`` and ``<option timestep gravity
+    iterations tolerance impratio cone>``;
+  * nested ``<default>`` classes (joint, geom and motor attributes) and
     ``<include>`` files, resolved relative to the including file;
   * body trees with ``pos`` and ``quat``/``axisangle``/``euler``;
-  * hinge and free joints (``axis``, ``pos``, ``ref``, ``damping``,
-    ``armature``);
+  * hinge, slide, ball and free joints (``axis``, ``pos``, ``ref``,
+    ``damping``, ``armature``, ``range``, ``limited``);
   * ``<inertial>`` with ``diaginertia`` or ``fullinertia``;
-  * motors (``gear``, ``ctrlrange``) and joint ``<equality>``
-    (``polycoef``, ``solref``, ``solimp``).
+  * ``<geom>`` (type, size, pose, friction, contype/conaffinity, condim,
+    margin, solref, solimp, density; a mesh geom is parsed, and the
+    compiler refuses it until scene/mesh.py is ported);
+  * ``<contact><exclude>``, motors (``gear``, ``ctrlrange``) and joint
+    ``<equality>`` (``polycoef``, ``solref``, ``solimp``).
 
-Geoms are skipped: their mass properties, meshes and collision tables
-belong to the contact-step slice of the port.
+The JAX parser also reads a geom's ``mass``, which its compiler never uses
+(masses come from ``density``), and the renderer's cameras, materials and
+mesh assets; the port leaves those out.
 """
 
 from __future__ import annotations
@@ -26,10 +31,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-# MuJoCo enums (values match mjtJoint)
+# MuJoCo enums (values match mjtJoint / mjtGeom)
 JNT_FREE, JNT_BALL, JNT_SLIDE, JNT_HINGE = 0, 1, 2, 3
+(GEOM_PLANE, GEOM_HFIELD, GEOM_SPHERE, GEOM_CAPSULE, GEOM_ELLIPSOID,
+ GEOM_CYLINDER, GEOM_BOX, GEOM_MESH) = range(8)
 _JNT_TYPES = {"free": JNT_FREE, "ball": JNT_BALL, "slide": JNT_SLIDE,
               "hinge": JNT_HINGE}
+_GEOM_TYPES = {"plane": GEOM_PLANE, "sphere": GEOM_SPHERE,
+               "capsule": GEOM_CAPSULE, "ellipsoid": GEOM_ELLIPSOID,
+               "cylinder": GEOM_CYLINDER, "box": GEOM_BOX, "mesh": GEOM_MESH}
 JNT_DOF = {JNT_FREE: 6, JNT_BALL: 3, JNT_SLIDE: 1, JNT_HINGE: 1}
 JNT_NQ = {JNT_FREE: 7, JNT_BALL: 4, JNT_SLIDE: 1, JNT_HINGE: 1}
 
@@ -57,9 +67,30 @@ class JointSpec:
     type: int = JNT_HINGE
     pos: np.ndarray = field(default_factory=lambda: np.zeros(3))
     axis: np.ndarray = field(default_factory=lambda: np.array([0.0, 0, 1]))
+    range: np.ndarray = field(default_factory=lambda: np.zeros(2))
+    limited: bool = False
     damping: float = 0.0
     armature: float = 0.0
     ref: float = 0.0
+
+
+@dataclass
+class GeomSpec:
+    name: str = ""
+    type: int = GEOM_SPHERE
+    size: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    pos: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    quat: np.ndarray = field(default_factory=lambda: np.array([1.0, 0, 0, 0]))
+    friction: np.ndarray = field(
+        default_factory=lambda: np.array([1.0, 0.005, 0.0001]))
+    contype: int = 1
+    conaffinity: int = 1
+    condim: int = 3
+    margin: float = 0.0
+    solref: np.ndarray = field(default_factory=lambda: np.array([0.02, 1.0]))
+    solimp: np.ndarray = field(
+        default_factory=lambda: np.array([0.9, 0.95, 0.001]))
+    density: float = 1000.0
 
 
 @dataclass
@@ -77,6 +108,7 @@ class BodySpec:
     pos: np.ndarray = field(default_factory=lambda: np.zeros(3))
     quat: np.ndarray = field(default_factory=lambda: np.array([1.0, 0, 0, 0]))
     joints: list[JointSpec] = field(default_factory=list)
+    geoms: list[GeomSpec] = field(default_factory=list)
     bodies: list["BodySpec"] = field(default_factory=list)
     inertial: InertialSpec | None = None
 
@@ -102,14 +134,24 @@ class EqualitySpec:
 
 
 @dataclass
-class SceneSpec:
-    model_name: str = ""
+class OptionSpec:
     timestep: float = 0.002
     gravity: np.ndarray = field(
         default_factory=lambda: np.array([0.0, 0, -9.81]))
+    iterations: int = 100
+    tolerance: float = 1e-8
+    impratio: float = 1.0
+    cone: str = "pyramidal"
+
+
+@dataclass
+class SceneSpec:
+    model_name: str = ""
+    option: OptionSpec = field(default_factory=OptionSpec)
     worldbody: BodySpec = field(default_factory=BodySpec)
     actuators: list[ActuatorSpec] = field(default_factory=list)
     equalities: list[EqualitySpec] = field(default_factory=list)
+    excludes: list[tuple[str, str]] = field(default_factory=list)
     inertiafromgeom: bool = True
     angle_deg: bool = False
 
@@ -131,8 +173,9 @@ def quat_mul(u, v) -> np.ndarray:
     ])
 
 
-def _orientation(el: ET.Element, angle_deg: bool) -> np.ndarray:
-    """quat / axisangle / euler (intrinsic xyz, MuJoCo's default) -> quat."""
+def _orientation(el, angle_deg: bool) -> np.ndarray:
+    """quat / axisangle / euler (intrinsic xyz, MuJoCo's default) -> quat,
+    from an element or an attribute dict (a geom's, defaults resolved)."""
     scale = np.pi / 180.0 if angle_deg else 1.0
     if el.get("quat") is not None:
         q = _vec(el.get("quat"))
@@ -157,7 +200,7 @@ class _Defaults:
     """Nested default classes: attribute dicts per element kind, inherited
     from the enclosing class; nested classes are visible globally."""
 
-    KINDS = ("joint", "motor")
+    KINDS = ("joint", "geom", "motor")
 
     def __init__(self, parent: "_Defaults | None" = None):
         self.attrs = {k: dict(parent.attrs[k]) if parent else {}
@@ -213,14 +256,24 @@ def parse_mjcf(path: str) -> SceneSpec:
         spec.inertiafromgeom = _bool(comp.get("inertiafromgeom"), True)
     opt = root.find("option")
     if opt is not None:
-        spec.timestep = _fl(opt.get("timestep"), spec.timestep)
-        spec.gravity = _vec(opt.get("gravity"), spec.gravity)
+        o = spec.option
+        o.timestep = _fl(opt.get("timestep"), o.timestep)
+        o.gravity = _vec(opt.get("gravity"), o.gravity)
+        o.iterations = int(opt.get("iterations", o.iterations))
+        o.tolerance = _fl(opt.get("tolerance"), o.tolerance)
+        o.impratio = _fl(opt.get("impratio"), o.impratio)
+        o.cone = opt.get("cone", o.cone)
 
     defaults = _Defaults()
     for d in root.findall("default"):
         defaults.absorb(d)
     spec.worldbody = _parse_body(root.find("worldbody"), defaults, spec,
                                  is_world=True)
+
+    for con in root.findall("contact"):
+        for el in con:
+            if el.tag == "exclude":
+                spec.excludes.append((el.get("body1"), el.get("body2")))
 
     for eq in root.findall("equality"):
         for el in eq:
@@ -269,10 +322,18 @@ def _parse_body(el: ET.Element, defaults: _Defaults, spec: SceneSpec,
             n = np.linalg.norm(j.axis)
             if n > 1e-12:
                 j.axis = j.axis / n
+            j.limited = _bool(attrs.get("limited"), False)
+            if attrs.get("range") is not None:
+                rng = _vec(attrs.get("range"))
+                if spec.angle_deg and j.type in (JNT_HINGE, JNT_BALL):
+                    rng = rng * np.pi / 180.0
+                j.range = rng
             j.damping = _fl(attrs.get("damping"), 0.0)
             j.armature = _fl(attrs.get("armature"), 0.0)
             j.ref = _fl(attrs.get("ref"), 0.0)
             body.joints.append(j)
+        elif child.tag == "geom":
+            body.geoms.append(_parse_geom(child, defaults, spec, childclass))
         elif child.tag == "inertial":
             it = InertialSpec(pos=_vec(child.get("pos"), [0.0, 0, 0]),
                               quat=_orientation(child, spec.angle_deg),
@@ -286,3 +347,25 @@ def _parse_body(el: ET.Element, defaults: _Defaults, spec: SceneSpec,
             body.bodies.append(_parse_body(child, defaults, spec,
                                            inherited_class=childclass))
     return body
+
+
+def _parse_geom(el: ET.Element, defaults: _Defaults, spec: SceneSpec,
+                childclass) -> GeomSpec:
+    attrs = defaults.resolve("geom", el, el.get("class", childclass))
+    g = GeomSpec(name=attrs.get("name", ""),
+                 type=_GEOM_TYPES[attrs.get("type", "sphere")],
+                 size=_vec(attrs.get("size"), [0.0, 0, 0], n=3),
+                 pos=_vec(attrs.get("pos"), [0.0, 0, 0]),
+                 quat=_orientation(attrs, spec.angle_deg),
+                 contype=int(attrs.get("contype", 1)),
+                 conaffinity=int(attrs.get("conaffinity", 1)),
+                 condim=int(attrs.get("condim", 3)),
+                 margin=_fl(attrs.get("margin"), 0.0),
+                 density=_fl(attrs.get("density"), 1000.0))
+    if attrs.get("friction") is not None:
+        g.friction = _vec(attrs.get("friction"), n=3)[:3]
+    if attrs.get("solref") is not None:
+        g.solref = _vec(attrs.get("solref"))
+    if attrs.get("solimp") is not None:
+        g.solimp = _vec(attrs.get("solimp"), n=3)[:3]
+    return g

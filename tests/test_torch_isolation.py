@@ -9,11 +9,20 @@ falls back to the CPU when CUDA is asked for.
 * ``GraspMPC`` asked for ``cuda`` where there is none raises.
 * ``plan_from_arrays`` carries the JAX package's chain plan across: the port
   computes the same rollout on it as on the plan it loads itself.
+* The four narrowphase kernels (csrc/collide_*.cu) compile on the host with
+  g++ through a shim header that stands in for the CUDA runtime and
+  defines the kernels' launch (``COLLIDE_LAUNCH``) as loops over blocks
+  and threads; called
+  through their C entry points on CPU tensors, they give their plain
+  versions' outputs to the bit (both round every product and sum in the
+  same order; the host build, like nvcc's, does not contract them).
 """
 
+import ctypes
 import os
 import pkgutil
 import re
+import shutil
 import subprocess
 import sys
 
@@ -33,6 +42,7 @@ from mujoco_rl_ur5_tpu_torch.carry import PLAN_FIELDS, plan_from_arrays
 from mujoco_rl_ur5_tpu_torch.mpc import cuda_lqr
 from mujoco_rl_ur5_tpu_torch.mpc.grasp_mpc import EE_OFFSET, GraspMPC
 from mujoco_rl_ur5_tpu_torch.physics import cuda_chain as cc
+from mujoco_rl_ur5_tpu_torch.physics import cuda_collide
 from mujoco_rl_ur5_tpu_torch.physics.chain import make_chain_plan
 from mujoco_rl_ur5_tpu_torch.scene.reduce import load_arm_model
 
@@ -47,9 +57,12 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert len(mods) >= 18
+    assert len(mods) >= 24
     for m in ("mpc.ilqr", "mpc.lqr", "mpc.cuda_ilqr", "mpc.grasp_mpc",
-              "physics.chain", "physics.cuda_chain", "ops.blockchol"):
+              "physics.chain", "physics.cuda_chain", "ops.blockchol",
+              "ops.spatial", "ops.consts", "physics.kinematics",
+              "physics.dynamics", "physics.collision",
+              "physics.cuda_collide", "physics.constraints"):
         assert "mujoco_rl_ur5_tpu_torch." + m in mods
     code = (
         "import sys\n"
@@ -216,3 +229,77 @@ def test_plan_from_arrays_gives_the_same_rollout():
     ref = np.stack([np.asarray(a) for a in q + v], -1)
     np.testing.assert_allclose(xs_c[:, 1].numpy(), ref, rtol=1e-5,
                                atol=1e-5)
+
+
+# a host stand-in for the CUDA runtime: kernels become plain functions
+_SHIM = """#pragma once
+#include <cmath>
+#include <cstddef>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __restrict__
+struct ShimDim { unsigned x = 0, y = 0, z = 0; };
+static ShimDim blockIdx, threadIdx, blockDim, gridDim;
+typedef void* cudaStream_t;
+static inline int cudaGetLastError() { return 0; }
+#define COLLIDE_LAUNCH(kernel, blocks, stream, ...)                  \\
+  do {                                                               \\
+    gridDim.x = (blocks);                                            \\
+    blockDim.x = COLLIDE_THREADS;                                    \\
+    for (blockIdx.x = 0; blockIdx.x < gridDim.x; ++blockIdx.x)       \\
+      for (threadIdx.x = 0; threadIdx.x < blockDim.x; ++threadIdx.x) \\
+        kernel(__VA_ARGS__);                                         \\
+  } while (0)
+"""
+
+
+def _host_build(kernel, d):
+    src = cuda_collide.source(kernel)
+    (d / "cuda_runtime.h").write_text(_SHIM)
+    for name, text in src.headers.items():
+        (d / name).write_text(text)
+    (d / f"{kernel}.cpp").write_text(src.text)
+    so = d / f"{kernel}.so"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-I",
+                    os.fspath(d), "-o", os.fspath(so),
+                    os.fspath(d / f"{kernel}.cpp")], check=True, timeout=120)
+    fn = getattr(ctypes.CDLL(os.fspath(so)), src.entry)
+    fn.argtypes, fn.restype = list(src.argtypes), ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("kernel", cuda_collide.KERNELS)
+def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
+    if shutil.which("g++") is None:
+        pytest.fail("g++ is needed to compile the kernel sources on the host")
+    fn = _host_build(kernel, tmp_path)
+    rng = np.random.default_rng(7)
+    B, n, G = 3, 5, 10
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    pos = t(rng.uniform(-0.08, 0.08, (B, G, 3)))
+    q = rng.normal(size=(B, G, 4))
+    quat = t(q / np.linalg.norm(q, axis=-1, keepdims=True))
+    size = t(rng.uniform(0.03, 0.1, (G, 3)))
+    from mujoco_rl_ur5_tpu_torch.scene.compile import _cylinder_prism_hull
+    h = [_cylinder_prism_hull(0.03, 0.05), _cylinder_prism_hull(0.05, 0.02)]
+    hulls = cuda_collide.Hulls(
+        torch.arange(G) % 2, t([x.hull_verts for x in h]),
+        t(np.ones((2, 32))), t([x.hull_fnorm for x in h]),
+        t([x.hull_fdist for x in h]))
+    g1 = torch.from_numpy(rng.integers(0, G // 2, (B, n)))
+    g2 = torch.from_numpy(rng.integers(G // 2, G, (B, n)))
+    K = 9 if kernel == "box_box" else 8
+    outs = [torch.empty(B, n, K, 3), torch.empty(B, n, K, 3),
+            torch.empty(B, n, K)]
+    keep = [pos, quat, size, hulls.meshid.to(torch.int32), *hulls[1:],
+            g1.to(torch.int32), g2.to(torch.int32), *outs]
+    assert fn(*(x.data_ptr() for x in keep), B, n, G, 32, 18, None) == 0
+    want = getattr(cuda_collide, f"{kernel}_batched").plain(
+        pos, quat, size, hulls, g1, g2)
+    act = want[2] < 1.0
+    assert act.sum() >= 5
+    for got, ref in zip(outs, want):
+        np.testing.assert_array_equal(got[act].numpy(), ref[act].numpy())
+    assert bool((outs[2][~act] >= 1.0).all())

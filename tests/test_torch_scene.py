@@ -47,7 +47,8 @@ TOPO_ARRAYS = ("body_parent", "body_jntnum", "body_tree", "tree_rootbody",
 
 @pytest.fixture(scope="module")
 def models():
-    return {"full": (load_model(ASSET), jax_load_model(ASSET)),
+    return {"full": (load_model(ASSET, device="cpu"),
+                     jax_load_model(ASSET)),
             "arm": (load_arm_model(ASSET), jax_load_arm(ASSET))}
 
 
@@ -143,12 +144,14 @@ def test_drop_free_bodies_keeps_the_arm():
 
 
 def test_inertia_from_geoms_raises(tmp_path):
+    """Inertia from a mesh geom needs scene/mesh.py, not ported yet (the
+    primitive types' mass properties are: tests/test_torch_contact_scene)."""
     xml = tmp_path / "geom_inertia.xml"
     xml.write_text(
         '<mujoco><worldbody><body name="b"><joint name="j"/>'
-        '<geom type="sphere" size="0.1"/></body></worldbody></mujoco>')
+        '<geom type="mesh" mesh="m"/></body></worldbody></mujoco>')
     with pytest.raises(ValueError, match="inertiafromgeom"):
-        load_model(os.fspath(xml))
+        load_model(os.fspath(xml), device="cpu")
 
 
 def _variant(tmp_path, kind):
@@ -175,7 +178,7 @@ def test_scene_variants_compile_like_jax(tmp_path, models, kind):
     """<include> splicing and degree angles: the same model as the JAX
     package's parser gives, and as the radian scene without includes."""
     path = _variant(tmp_path, kind)
-    port, ref = load_model(path), jax_load_model(path)
+    port, ref = load_model(path, device="cpu"), jax_load_model(path)
     assert port.topo.joint_names == tuple(ref.topo.joint_names)
     assert (port.topo.nu, port.topo.neq) == (7, 1)
     for name in MODEL_ARRAYS:
