@@ -6,10 +6,11 @@
 Phases, each printing its lines; any failure raises and exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the ten build units from csrc/, six of the batched solves (five
-     kernels; rollout_closed once with the track costs and once with the
-     reach costs) and the four collide kernels, one nvcc per source, in
-     parallel, with the build time and ptxas's register and spill report;
+  2. build: the thirteen build units from csrc/, six of the batched solves
+     (five kernels; rollout_closed once with the track costs and once with
+     the reach costs), the six collide kernels and the ray cast, one nvcc
+     per source, in parallel, with the build time and ptxas's register and
+     spill report;
   3. kernels: each kernel's wrapper at the shapes the main paths give it
      (B=4096, H=64, substeps=8), held against its plain PyTorch version on
      the same inputs on the card, output by output, with the tolerance
@@ -50,13 +51,38 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the CPU at B=64, iterations=30: one step's qacc, active contacts and
      forces, and 25 steps' qpos by statistics, with limits read between
      the sound runs (and two plain rolls one ulp apart) and two planted
-     faults and a TF32 control, each of which must be caught.
+     faults and a TF32 control, each of which must be caught;
+  9. the object pile (assets/ur5_2finger_objects.xml: spheres, boxes,
+     cylinders, capsules, mesh finger pads) at B=4096, ncon=128: a 300-step
+     settle (iterations=30) from a seeded drop with the share of objects in
+     the bin by family, the rest gap and the largest speeds; two 5-step
+     rolls that must agree to the bit; all six collide kernels against
+     their plain versions at the settled pile's shapes, timed beside their
+     plain versions and bounds; the step at iterations=100 (median of 3
+     calls of 25 steps from the seeded drop, one launch of each collide
+     kernel per step, the calls equal to the bit); one step at B=64,
+     iterations=30 against the CPU's plain path with phase 8's one-step
+     limits, beside the CPU against itself one ulp off;
+ 10. the settled pile's RGB-D observation from the top_down camera at
+     200 x 200: the ray-cast kernel against its plain version on 16
+     frames (geom id, s* and normal on every pixel), a planted fault (one
+     visible geom hidden in the kernel's call only) that the geom check
+     must catch, render_rgbd timed at B=256 and B=4096 with its launch
+     count, its device time and the kernel's under torch.profiler and the
+     bound, the kernel held against its plain version again at each of
+     these batches (every frame of B=256, the last 16 frames of B=4096),
+     a render with the arm panned so that the finger pads hang over
+     the bin (every branch of the cast must win pixels), and a geometric
+     check of one frame: each hit pixel back-projects onto the surface of
+     the geom that won it, and the floor reads the camera's height.
+
+Each phase's wall time and the whole run's are printed as it ends.
 
     python3 chip_smoke.py --dump-settle PATH   also writes the settle roll's
                                                fastest scenarios to PATH
 
-The last three lines are the kernel table as JSON (nine kernels), the card's
-name and power limit, and the device line as JSON.
+The last three lines are the kernel table as JSON (twelve kernels), the
+card's name and power limit, and the device line as JSON.
 """
 
 from __future__ import annotations
@@ -78,6 +104,7 @@ PEAK_F32_FLOP_PER_S = 67e12       # float32 outside the tensor cores
 B, H, SUBSTEPS, ITERS = 4096, 64, 8, 6
 NCON, STEPS, SETTLE = 128, 25, 300       # the contact step's cell
 COLLIDE = ("box_box", "hull_hull", "box_hull", "plane_hull")
+OBJ_COLLIDE = COLLIDE + ("sphere_hull", "capsule_hull")
 COLLIDE_TOL = 2e-5        # kernel vs plain, per active slot (float32 order)
 HOME = np.array([0.0, -1.57, 1.57, -1.57, -1.57, 0.0, 0.0, 0.0])
 
@@ -220,8 +247,19 @@ def collide_flops(kernel: str, V: int, F: int) -> tuple:
     deepest-vertex pass of hull-hull and box-hull runs on the side whose
     face lost, which the data decide: it is counted on the smaller side.
     The kernel moves every vertex to world again for each face and each
-    output slot (24 and 25 per vertex), which keeps its registers few."""
+    output slot (24 and 25 per vertex), which keeps its registers few.
+    A sphere probe scores a center against a face 7 and writes a contact
+    12; a capsule's hull centre is a masked sum 24 per vertex, its five
+    probe centres 48. Call it with the hulls' real vertex and face counts
+    for what the function needs, with the padded ones for what the kernel
+    executes."""
     pose = 2 * 36
+    if kernel == "sphere_hull":
+        n = 36 + F * (20 + 7) + 12
+        return n, n + 36
+    if kernel == "capsule_hull":
+        n = pose + V * 24 + 4 + 48 + F * (20 + 5 * 7) + 5 * 12
+        return n, n
     if kernel == "box_box":
         n = pose + (16 + 8) * 59 + 6 * 60 + 9 * 78 + 9 * 24
         return n, n
@@ -269,18 +307,25 @@ def pile_stats(model, state) -> dict:
     from mujoco_rl_ur5_tpu_torch.physics import collision
     from mujoco_rl_ur5_tpu_torch.physics.constraints import collision_poses
     from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
+    from mujoco_rl_ur5_tpu_torch.scene.mjcf import GEOM_CYLINDER
     t = model.topo
     cpos, cquat = collision_poses(model, fk(model, state.qpos))
     objs = [t.geom_id(f"object_{i}_geom") for i in range(40)]
     low = []
     for g in objs:
+        size = model.col_size[g]
         if t.geom_meshid[g] >= 0:
             verts = quat_rotate(cquat[:, g, None], model.hull_verts[
                 int(t.geom_meshid[g])]) + cpos[:, g, None]
-        else:
-            verts = collision._box_corners(cpos[:, g], cquat[:, g],
-                                           model.col_size[g])
-        low.append(verts[..., 2].amin(-1))
+            low.append(verts[..., 2].amin(-1))
+        elif int(model.col_type[g]) == collision.GEOM_BOX:
+            verts = collision._box_corners(cpos[:, g], cquat[:, g], size)
+            low.append(verts[..., 2].amin(-1))
+        else:                                     # sphere or capsule
+            axis_z = collision._zaxis(cquat[:, g], cpos)[..., 2]
+            half = (axis_z.abs() * size[1] if int(model.col_type[g])
+                    == collision.GEOM_CAPSULE else 0.0)
+            low.append(cpos[:, g, 2] - half - size[0])
     low = torch.stack(low, 1)
     c = cpos[:, objs]
     inside = ((c[..., 0].abs() < 0.16) & ((c[..., 1] + 0.6).abs() < 0.16)
@@ -288,7 +333,14 @@ def pile_stats(model, state) -> dict:
     on_floor = inside & ((low - 0.86).abs() < 5e-3)
     v = state.qvel[:, 8:].reshape(-1, 40, 6)
     lin, ang = v[..., :3].norm(dim=-1), v[..., 3:].norm(dim=-1)
+    family = {}
+    for g, i in zip(objs, range(40)):
+        family.setdefault(int(t.geom_type[g]), []).append(i)
+    names = {collision.GEOM_SPHERE: "spheres", collision.GEOM_BOX: "boxes",
+             GEOM_CYLINDER: "cylinders", collision.GEOM_CAPSULE: "capsules"}
     return {"in_bin": float(inside.float().mean()),
+            "in_bin_by_family": {names[k]: float(inside[:, v].float().mean())
+                                 for k, v in sorted(family.items())},
             "floor_gap_mean": float((low - 0.86)[on_floor].mean()),
             "on_floor": int(on_floor.sum()),
             "max_lin": float(lin.max()), "max_ang": float(ang.max()),
@@ -301,89 +353,72 @@ def pile_stats(model, state) -> dict:
                            and torch.isfinite(state.qvel).all())}
 
 
-def contact_step(log, dump_settle=None) -> dict:
-    """Phases 7 and 8 (see the module docstring); returns the four collide
-    kernels' rows of the kernel table. With ``dump_settle`` (a path), the
-    settle roll also keeps a snapshot every 50 steps and writes, for the
-    four scenarios with the fastest objects at its end by linear speed and
-    the four by angular speed, their snapshots and their objects' largest
-    linear and angular speed after every step (numpy .npz)."""
-    import dataclasses
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from mujoco_rl_ur5_tpu_torch import PILE
-    from mujoco_rl_ur5_tpu_torch.physics import (
-        collision, constraints, cuda_collide, dynamics,
-    )
-    from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
-    from mujoco_rl_ur5_tpu_torch.scene.compile import load_model
-
-    model = load_model(PILE)
-    t = model.topo
-    wrappers = {k: getattr(cuda_collide, f"{k}_batched") for k in COLLIDE}
-    log(f"contact step: pile fixture nq={t.nq} nv={t.nv} ntree={t.ntree} "
-        f"ncand={constraints.n_candidates(model)} B={B} ncon={NCON}")
-
-    # 7a. settle roll from a seeded drop
-    drop = drop_state(model, B, seed=5)
-    drop_warm = constraints.init_warm(model, drop)
-    state, warm = drop, drop_warm
+def settle(log, model, state, warm, dump=None):
+    """The settle roll: SETTLE steps at iterations=30 from ``state``, and
+    the pile's statistics at its end (``pile_stats``); returns the settled
+    state and warm start. With ``dump`` (a path), the roll also keeps a
+    snapshot every 50 steps and writes, for the four scenarios with the
+    fastest objects at its end by linear speed and the four by angular
+    speed, their snapshots and their objects' largest linear and angular
+    speed after every step (numpy .npz)."""
+    from mujoco_rl_ur5_tpu_torch.physics import dynamics
+    Bs = state.qpos.shape[0]
     snaps, speeds = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(SETTLE):
-        if dump_settle and i % 50 == 0:
+        if dump and i % 50 == 0:
             snaps.append((state.qpos.clone(), state.qvel.clone(),
                           warm[0].clone(), warm[1].clone()))
         state, warm = dynamics.step_warm(model, state, warm, NCON, 30)
-        if dump_settle:
-            v = state.qvel[:, 8:].reshape(B, 40, 6)
+        if dump:
+            v = state.qvel[:, 8:].reshape(Bs, 40, 6)
             speeds.append(torch.stack([v[..., :3].norm(dim=-1).amax(-1),
                                        v[..., 3:].norm(dim=-1).amax(-1)], -1))
     torch.cuda.synchronize()
     st = pile_stats(model, state)
     log(f"  settle: {SETTLE} steps (iterations=30) in "
         f"{time.perf_counter() - t0:.1f} s; objects in the bin "
-        f"{st['in_bin']:.2%}; {st['on_floor']} on the bin floor, mean gap "
+        f"{st['in_bin']:.2%} (" + ", ".join(
+            f"{k} {v:.2%}" for k, v in st["in_bin_by_family"].items())
+        + f"); {st['on_floor']} on the bin floor, mean gap "
         f"{st['floor_gap_mean'] * 1e3:.3f} mm (margin 1 mm; 0 = touching); "
         f"objects' largest speed {st['max_lin']:.3f} m/s and "
         f"{st['max_ang']:.3f} rad/s (in the bin {st['max_lin_in_bin']:.3f}"
         f" m/s, {st['max_ang_in_bin']:.3f} rad/s), {st['lin_over_1']} over "
-        f"1 m/s and {st['ang_over_10']} over 10 rad/s of {40 * B}; the "
+        f"1 m/s and {st['ang_over_10']} over 10 rad/s of {40 * Bs}; the "
         f"arm's largest |qvel| (no control, falling) "
         f"{st['max_qvel_arm']:.3f}")
     if not st["finite"]:
         raise AssertionError("the settle roll went non-finite")
-    if dump_settle:
+    if dump:
         speeds = torch.stack(speeds, 1)                  # (B, SETTLE, 2)
         top = torch.cat([torch.argsort(speeds[:, -1, k], descending=True)[:4]
                          for k in (0, 1)])
-        np.savez(dump_settle, scenario=top.cpu().numpy(),
+        np.savez(dump, scenario=top.cpu().numpy(),
                  speed=speeds[top].cpu().numpy(),
                  snap_step=np.arange(0, SETTLE, 50),
                  **{f"{k}": torch.stack([sn[j][top] for sn in snaps], 1)
                     .cpu().numpy() for j, k in enumerate(
                         ("qpos", "qvel", "warm_f", "warm_s"))})
-        log(f"  settle: wrote scenarios {top.tolist()} to {dump_settle}")
-        del snaps, speeds
+        log(f"  settle: wrote scenarios {top.tolist()} to {dump}")
+    return state, warm
 
-    # the step repeats to the bit: two 5-step rolls from the settled pile
-    rolls = []
-    for _ in range(2):
-        s, w = state, warm
-        for _ in range(5):
-            s, w = dynamics.step_warm(model, s, w, NCON, 30)
-        rolls.append((s.qpos, s.qvel, *w))
-    same = all(torch.equal(a, b) for a, b in zip(*rolls))
-    log(f"  determinism: two 5-step rolls of the settled pile end in the "
-        f"same qpos, qvel and warm state to the bit: {same}")
-    if not same:
-        raise AssertionError("the contact step does not repeat to the bit")
-    del rolls
 
-    # 7b. the four kernels against their plain versions at the step's shapes
+def collide_rows(log, model, state) -> dict:
+    """Each collide kernel of the model's groups against its plain version
+    at the shapes of ``state``'s step (per active slot within COLLIDE_TOL
+    after a per-(pair, scenario) sort by dist, at most 0.01% of the entries
+    outside), timed with CUDA events beside its plain version and its
+    bound; returns their rows of the kernel table (launches still None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mujoco_rl_ur5_tpu_torch.physics import (
+        collision, constraints, cuda_collide,
+    )
+    from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
+    B = state.qpos.shape[0]
     log(f"  collide kernels vs plain at the settled pile's shapes (tolerance "
         f"{COLLIDE_TOL:g} per active slot, after a per-(pair, scenario) sort "
         f"by dist)")
@@ -420,18 +455,29 @@ def contact_step(log, dump_settle=None) -> dict:
         ms = event_ms(lambda: wrapper(*args), 20)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
+            for _ in range(20):
                 wrapper(*args)
             torch.cuda.synchronize()
         ev = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
-              and f"{name}_kernel" in e.key]
-        # per recorded launch: the profiler may drop events of a short run
+              and f"{name}_kernel" in e.key and e.self_device_time_total]
+        # per recorded launch: the profiler may drop events of a short run,
+        # or all of them (then "not measured": None)
         dev_ms = (sum(e.self_device_time_total for e in ev)
-                  / max(sum(e.count for e in ev), 1) / 1e3)
+                  / sum(e.count for e in ev) / 1e3) if ev else None
         n = g1.shape[1]
         V, F = model.hull_verts.shape[1], model.hull_fnorm.shape[1]
-        need, executed = collide_flops(name, V, F)
+        # what is needed: the hulls' real vertices and faces in these pairs
+        # (their mean over the hull sides of every entry)
+        Vr, Fr = V, F
+        sides = [g for g, ty in ((g1, t1), (g2, t2))
+                 if ty == collision.GEOM_MESH]
+        if sides:
+            mesh = torch.cat([hulls.meshid[g].flatten() for g in sides])
+            Vr = float(model.hull_vmask[mesh].sum(-1).mean())
+            Fr = float((model.hull_fdist[mesh] < 1e9).sum(-1).float().mean())
+        need = collide_flops(name, Vr, Fr)[0]
+        executed = collide_flops(name, V, F)[1]
         ops = B * n * need
         nbyte = nbytes(cpos, cquat, g1.int(), g2.int(), *got)
         t_bytes = nbyte / PEAK_BYTES_PER_S * 1e3
@@ -441,29 +487,68 @@ def contact_step(log, dump_settle=None) -> dict:
             "source": f"mujoco_rl_ur5_tpu_torch/csrc/collide_{name}.cu",
             "replaces": "mujoco_rl_ur5_tpu/physics/pallas_collide.py:" + {
                 "box_box": "675", "hull_hull": "689", "box_hull": "703",
-                "plane_hull": "715"}[name],
+                "plane_hull": "715", "sphere_hull": "727",
+                "capsule_hull": "739"}[name],
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "device_ms": dev_ms}
+        dev = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
         log(f"  {name}: {n} pairs x {B}, {int(live.sum())} (pair, scenario) "
             f"entries with an active slot, {bad} outside the tolerance; max "
             f"|kernel - plain| {max_err:.3e}; {ms:.3f} ms (device "
-            f"{dev_ms:.3f} ms), plain {plain_ms:.2f} ms, bound "
+            f"{dev}), plain {plain_ms:.2f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms ({ops:.3e} ops needed, "
             f"{nbyte:.3e} bytes; the kernel executes "
             f"{B * n * executed:.3e} ops)")
         if bad > 1e-4 * max(int(live.sum()), 1):
             raise AssertionError(f"{name}: {bad} entries outside the "
                                  f"tolerance")
+    return rows
 
-    # 7c. the step at full width, through the kernels. Every call starts
-    # from the seeded drop, as bench.py's bench_dynamics times its roll
-    # from the scene's rest state (the work per step does not depend on
-    # the state: fixed shapes, fixed iterations). Not from the settled
-    # pile: there, a 100-iteration solve can diverge in a rare scenario,
-    # in the JAX package's step as in the port's (ROADMAP.md Queue 3)
-    def call(iters):
+
+def first_scenarios(state, warm, n: int):
+    """The first ``n`` scenarios of a card state and warm start, on the card
+    and on the CPU, and the CPU state with every velocity one float32 ulp
+    off (alternately up and down)."""
+    sg = state.replace(qpos=state.qpos[:n].clone(),
+                       qvel=state.qvel[:n].clone(), ctrl=state.ctrl[:n],
+                       time=state.time[:n])
+    wg = (warm[0][:n].clone(), warm[1][:n].clone())
+    sc = sg.replace(qpos=sg.qpos.cpu(), qvel=sg.qvel.cpu(), ctrl=sg.ctrl.cpu(),
+                    time=sg.time.cpu())
+    wc = (wg[0].cpu(), wg[1].cpu())
+    sign = torch.ones_like(sc.qvel)
+    sign.view(-1)[1::2] = -1.0
+    su = sc.replace(qvel=torch.nextafter(sc.qvel, sc.qvel + sign))
+    return sg, wg, sc, wc, su
+
+
+def rolls_agree(log, model, state, warm) -> None:
+    """The step repeats to the bit: two 5-step rolls (iterations=30) from
+    ``state`` end in the same qpos, qvel and warm state."""
+    from mujoco_rl_ur5_tpu_torch.physics import dynamics
+    rolls = []
+    for _ in range(2):
+        s, w = state, warm
+        for _ in range(5):
+            s, w = dynamics.step_warm(model, s, w, NCON, 30)
+        rolls.append((s.qpos, s.qvel, *w))
+    same = all(torch.equal(a, b) for a, b in zip(*rolls))
+    log(f"  determinism: two 5-step rolls of the settled pile end in the "
+        f"same qpos, qvel and warm state to the bit: {same}")
+    if not same:
+        raise AssertionError("the contact step does not repeat to the bit")
+
+
+def timed_steps(log, model, drop, drop_warm, iters, wrappers) -> dict:
+    """Three calls of STEPS steps from the seeded drop, each with the
+    collide kernels' launch counts set to 0 just before and read just
+    after (one launch of each per step): the median wall time, and the
+    calls' end states equal to the bit. Returns the last call's counts."""
+    from mujoco_rl_ur5_tpu_torch.physics import dynamics
+    walls, ends = [], []
+    for _ in range(3):
         for wr in wrappers.values():
             wr.launches = 0
         s, w = drop, drop_warm
@@ -472,36 +557,34 @@ def contact_step(log, dump_settle=None) -> dict:
         for _ in range(STEPS):
             s, w = dynamics.step_warm(model, s, w, NCON, iters)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        walls.append(time.perf_counter() - t0)
         n = {k: wr.launches for k, wr in wrappers.items()}
         if set(n.values()) != {STEPS}:
             raise AssertionError(f"launches {n} over {STEPS} steps")
         if not bool(torch.isfinite(s.qpos).all()
                     and torch.isfinite(s.qvel).all()):
             raise AssertionError("the contact step went non-finite")
-        return wall, n, s
+        ends.append(s)
+    med = statistics.median(walls)
+    same = all(torch.equal(e.qpos, ends[0].qpos)
+               and torch.equal(e.qvel, ends[0].qvel) for e in ends)
+    log(f"  step iterations={iters}: {STEPS} steps of {B} per call, median "
+        f"of 3 calls {med:.3f} s ({med / STEPS * 1e3:.1f} ms per step), "
+        f"{B * STEPS / med:.0f} scenario-steps/s; launches per call {n}; "
+        f"the three calls end in the same state to the bit: {same}")
+    if not same:
+        raise AssertionError("the three calls end in different states")
+    return n
 
-    for iters in (100, 30):
-        walls, ends = [], []
-        for _ in range(3):
-            wall, n, s = call(iters)
-            walls.append(wall)
-            ends.append(s)
-        if iters == 100:
-            for k in COLLIDE:
-                rows[k]["launches"] = n[k]
-        med = statistics.median(walls)
-        same = all(torch.equal(e.qpos, ends[0].qpos)
-                   and torch.equal(e.qvel, ends[0].qvel) for e in ends)
-        log(f"  step iterations={iters}: {STEPS} steps of {B} per call, "
-            f"median of 3 calls {med:.3f} s ({med / STEPS * 1e3:.1f} ms per "
-            f"step), {B * STEPS / med:.0f} scenario-steps/s; launches per "
-            f"call {n}; the three calls end in the same state to the bit: "
-            f"{same}")
-        if not same:
-            raise AssertionError("the three calls end in different states")
-        del ends
 
+def profile_step(log, model, state, warm) -> None:
+    """One step (iterations=100) under torch.profiler: wall, device busy
+    share, launches, and device time by kernel (the twelve largest and the
+    collide kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mujoco_rl_ur5_tpu_torch.physics import dynamics
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -516,10 +599,52 @@ def contact_step(log, dump_settle=None) -> dict:
         f"{wall_ms:.1f} ms, device busy {busy:.1f} ms ({busy / wall_ms:.1%}),"
         f" {sum(e.count for e in ev)} kernel launches")
     ev.sort(key=lambda e: -e.self_device_time_total)
-    for e in ev[:12] + [e for e in ev[12:] if "collide" in e.key
-                        or any(f"{k}_kernel" in e.key for k in COLLIDE)]:
+    for e in ev[:12] + [e for e in ev[12:] if any(
+            f"{k}_kernel" in e.key for k in OBJ_COLLIDE)]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
             f"{e.key[:90]}")
+
+
+def contact_step(log, dump_settle=None) -> dict:
+    """Phases 7 and 8 (see the module docstring); returns the four collide
+    kernels' rows of the kernel table. ``dump_settle``: see ``settle``."""
+    import dataclasses
+
+    from mujoco_rl_ur5_tpu_torch import PILE
+    from mujoco_rl_ur5_tpu_torch.physics import (
+        collision, constraints, cuda_collide, dynamics,
+    )
+    from mujoco_rl_ur5_tpu_torch.scene.compile import load_model
+
+    model = load_model(PILE)
+    t = model.topo
+    wrappers = {k: getattr(cuda_collide, f"{k}_batched") for k in COLLIDE}
+    log(f"contact step: pile fixture nq={t.nq} nv={t.nv} ntree={t.ntree} "
+        f"ncand={constraints.n_candidates(model)} B={B} ncon={NCON}")
+
+    # 7a. settle roll from a seeded drop
+    drop = drop_state(model, B, seed=5)
+    drop_warm = constraints.init_warm(model, drop)
+    state, warm = settle(log, model, drop, drop_warm, dump_settle)
+
+    rolls_agree(log, model, state, warm)
+
+    # 7b. the four kernels against their plain versions at the step's shapes
+    rows = collide_rows(log, model, state)
+
+    # 7c. the step at full width, through the kernels. Every call starts
+    # from the seeded drop, as bench.py's bench_dynamics times its roll
+    # from the scene's rest state (the work per step does not depend on
+    # the state: fixed shapes, fixed iterations). Not from the settled
+    # pile: there, a 100-iteration solve can diverge in a rare scenario,
+    # in the JAX package's step as in the port's (ROADMAP.md Queue 3)
+    for iters in (100, 30):
+        n = timed_steps(log, model, drop, drop_warm, iters, wrappers)
+        if iters == 100:
+            for k in COLLIDE:
+                rows[k]["launches"] = n[k]
+
+    profile_step(log, model, state, warm)
 
     # 8. the whole step through the kernels against the plain path (CPU),
     # B=64, iterations=30, from the settled pile. The narrowphase agrees to
@@ -545,16 +670,7 @@ def contact_step(log, dump_settle=None) -> dict:
     ncand = constraints.n_candidates(model)
     obj_z = [t.jnt_qposadr[t.joint_id(f"free_joint_{i}")] + 2
              for i in range(40)]
-    sg = state.replace(qpos=state.qpos[:Bc].clone(),
-                       qvel=state.qvel[:Bc].clone(), ctrl=state.ctrl[:Bc],
-                       time=state.time[:Bc])
-    wg = (warm[0][:Bc].clone(), warm[1][:Bc].clone())
-    sc = sg.replace(qpos=sg.qpos.cpu(), qvel=sg.qvel.cpu(), ctrl=sg.ctrl.cpu(),
-                    time=sg.time.cpu())
-    wc = (wg[0].cpu(), wg[1].cpu())
-    sign = torch.ones_like(sc.qvel)
-    sign.view(-1)[1::2] = -1.0
-    su = sc.replace(qvel=torch.nextafter(sc.qvel, sc.qvel + sign))
+    sg, wg, sc, wc, su = first_scenarios(state, warm, Bc)
     log(f"whole contact step: B={Bc} iterations={it_c}, kernels vs plain "
         f"(CPU)")
 
@@ -644,6 +760,311 @@ def contact_step(log, dump_settle=None) -> dict:
     return rows
 
 
+# the arm turned so that the finger pads hang level over the bin
+PADS_OVER_BIN = (-1.42, -1.08, 0.348, -1.739, 3.142, 0.671, 0.0, 0.0)
+IMAGE = 200                  # the reference's observation, bench.py:139
+RENDER_FRAMES = (256, 4096)  # bench_render's batch; every scenario
+# ray cast, kernel vs plain where the geom agrees: s* relative, normal
+# absolute; the share of pixels whose geom may differ
+CAST_TOL = {"gid": 1e-4, "s": 1e-6, "n": 1e-5}
+# f32 operations of one ray against one visible geom of each branch (its
+# frame change 15 and the z-buffer compare 1 included): plane, sphere, box,
+# capsule, cylinder; a hull 19 + 27 per real face; the winner's hit point
+# and unit normal 16 and world normal 15 once per pixel
+RAY_OPS = (23, 47, 58, 121, 66)
+RAY_OPS_HULL, RAY_OPS_FACE, RAY_OPS_PIXEL = 19, 27, 31
+
+
+def object_pile(log):
+    """Phase 9 (see the module docstring): returns the six collide
+    kernels' rows of the kernel table, the device model and the settled
+    state."""
+    from mujoco_rl_ur5_tpu_torch import OBJECTS
+    from mujoco_rl_ur5_tpu_torch.physics import (
+        constraints, cuda_collide, dynamics,
+    )
+    from mujoco_rl_ur5_tpu_torch.scene.compile import load_model
+
+    model = load_model(OBJECTS)
+    t = model.topo
+    wrappers = {k: getattr(cuda_collide, f"{k}_batched") for k in OBJ_COLLIDE}
+    log(f"object pile: nq={t.nq} nv={t.nv} ntree={t.ntree} hull tables "
+        f"{t.hull_maxv} x {t.hull_maxf} ncand={constraints.n_candidates(model)}"
+        f" B={B} ncon={NCON}")
+
+    # 9a. settle roll from a seeded drop
+    drop = drop_state(model, B, seed=5)
+    drop_warm = constraints.init_warm(model, drop)
+    state, warm = settle(log, model, drop, drop_warm)
+    rolls_agree(log, model, state, warm)
+
+    # 9b. the six collide kernels at the settled pile's shapes
+    rows = collide_rows(log, model, state)
+    if set(rows) != set(OBJ_COLLIDE):
+        raise AssertionError(f"collide groups {sorted(rows)}, expected "
+                             f"{sorted(OBJ_COLLIDE)}")
+
+    # 9c. the step at the reference's solver setting, from the seeded drop
+    n = timed_steps(log, model, drop, drop_warm, 100, wrappers)
+    for k in OBJ_COLLIDE:
+        rows[k]["launches"] = n[k]
+    profile_step(log, model, state, warm)
+
+    # 9d. one step through the kernels against the CPU's plain path, B=64,
+    # iterations=30, from the settled pile, with phase 8's one-step limits
+    # and the CPU against itself with every velocity one float32 ulp off
+    Bc, it_c = 64, 30
+    cpu_model = load_model(OBJECTS, device="cpu")
+    sg, wg, sc, wc, su = first_scenarios(state, warm, Bc)
+    qa_c, _, con_c, wn_c = dynamics.forward_warm(cpu_model, sc, wc, NCON,
+                                                 it_c)
+
+    def one_step(m, s, w):
+        qa, _, con, wn = dynamics.forward_warm(m, s, w, NCON, it_c)
+        na, na_c = int(con.active.sum()), int(con_c.active.sum())
+        return {"qacc": float((qa.cpu() - qa_c).abs().max()
+                              / qa_c.abs().max()),
+                "forces": float((wn[0].cpu() - wn_c[0]).abs().max()
+                                / wn_c[0].abs().max().clamp_min(1e-12)),
+                "active": abs(na - na_c) / max(na_c, 1)}
+
+    read = {"kernels vs plain": one_step(model, sg, wg),
+            "plain vs plain, one ulp": one_step(cpu_model, su, wc)}
+    limits = {"qacc": 1e-3, "forces": 3e-5, "active": 5e-3}
+    log(f"whole object-pile step: B={Bc} iterations={it_c}, kernels vs "
+        f"plain (CPU)")
+    for key, lim in limits.items():
+        log(f"  one step {key} (limit {lim:.1e}): " + "; ".join(
+            f"{run} {r[key]:.3e}" for run, r in read.items()))
+        check("kernels vs plain", read["kernels vs plain"][key], lim,
+              f"one step: {key}")
+    return rows, model, state
+
+
+def surface_distance(model, gpos, gquat, gid, world):
+    """Distance of world points (P, 3) from the surface of geom gid (P,)
+    (poses gpos (G, 3), gquat (G, 4) of one frame), by type."""
+    from mujoco_rl_ur5_tpu_torch.ops.spatial import quat_rotate_inv
+    from mujoco_rl_ur5_tpu_torch.scene.mjcf import (
+        GEOM_BOX, GEOM_CAPSULE, GEOM_CYLINDER, GEOM_MESH, GEOM_PLANE,
+        GEOM_SPHERE,
+    )
+    t = model.topo
+    p = quat_rotate_inv(gquat[gid], world - gpos[gid])
+    size = model.geom_size[gid]
+    gt = torch.as_tensor(t.geom_type, device=p.device)[gid]
+    r, hl = size[:, 0], size[:, 1]
+    x, y, z = p.unbind(-1)
+    q = p.abs() - size
+    box = q.clamp_min(0).norm(dim=-1) + q.amax(-1).clamp_max(0)
+    cap = (p - torch.stack([0 * x, 0 * y, torch.maximum(torch.minimum(
+        z, hl), -hl)], -1)).norm(dim=-1) - r
+    dc = torch.stack([torch.hypot(x, y) - r, z.abs() - hl], -1)
+    cyl = dc.clamp_min(0).norm(dim=-1) + dc.amax(-1).clamp_max(0)
+    row = torch.as_tensor(t.geom_meshid, device=p.device)[gid].clamp_min(0)
+    fn, fd = model.hull_fnorm[row], model.hull_fdist[row]
+    hull = ((fn * p[:, None]).sum(-1) - fd).amax(-1)
+    out = torch.full_like(x, float("inf"))
+    for ty, v in ((GEOM_PLANE, z), (GEOM_SPHERE, p.norm(dim=-1) - r),
+                  (GEOM_BOX, box), (GEOM_CAPSULE, cap),
+                  (GEOM_CYLINDER, cyl), (GEOM_MESH, hull)):
+        out = torch.where(gt == ty, v, out)
+    return out
+
+
+def observation(log, model, state) -> dict:
+    """Phase 10 (see the module docstring): returns the ray cast's row of
+    the kernel table."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk, geom_poses
+    from mujoco_rl_ur5_tpu_torch.render import camera, cuda_raycast, raycast
+
+    t = model.topo
+    cast = cuda_raycast.cast_rays
+    cam = camera.make_camera(model, "top_down", IMAGE, IMAGE)
+    dn = cam.dirs
+    N = dn.shape[0]
+    log(f"observation: top_down camera at {IMAGE} x {IMAGE}, near "
+        f"{cam.near:.5f} m, far {cam.far:.3f} m, {t.ngeom} geoms")
+
+    # 10a. the kernel against its plain version on 16 frames of the pile
+    par, code, faces = raycast.geom_table(model, fk(model, state.qpos[:16]),
+                                          cam)
+    got, want = cast(par, code, faces, dn), cast.plain(par, code, faces, dn)
+
+    def compare(a, b):
+        same = a[1] == b[1]
+        hit = same & (b[0] < raycast.BIG / 2)
+        s_rel = float(((a[0] - b[0]).abs() / b[0].abs())[hit].max())
+        n_abs = float((a[2] - b[2]).abs().amax(-1)[same].max())
+        return 1.0 - float(same.float().mean()), s_rel, n_abs
+
+    diff, s_rel, n_abs = compare(got, want)
+    log(f"  ray cast vs plain, 16 frames x {N} pixels: equal to the bit "
+        f"{all(torch.equal(a, b) for a, b in zip(got, want))}")
+    check("raycast", diff, CAST_TOL["gid"], "share of pixels whose geom "
+          "differs")
+    check("raycast", s_rel, CAST_TOL["s"], "max |ds*| / s* where the geom "
+          "agrees")
+    check("raycast", n_abs, CAST_TOL["n"], "max |dnormal| where the geom "
+          "agrees")
+    wins = torch.bincount(want[1].flatten().long(), minlength=t.ngeom)
+    objs = [t.geom_id(f"object_{i}_geom") for i in range(40)]
+    planted = objs[int(wins[objs].argmax())]
+    code_f = code.clone()
+    code_f[planted, 0] = -1
+    fault = compare(cast(par, code_f, faces, dn), want)[0]
+    log(f"  planted fault: geom {t.geom_names[planted]} ({int(wins[planted])}"
+        f" pixels) hidden in the kernel's call only: {fault:.3e} of the "
+        f"pixels change geom (limit {CAST_TOL['gid']:.0e}): "
+        f"{'caught' if fault > CAST_TOL['gid'] else 'MISSED'}")
+    if not fault > CAST_TOL["gid"]:
+        raise AssertionError("the geom check misses a hidden geom")
+    max_err = max(s_rel, n_abs)
+    del got, want
+
+    # 10b. render_rgbd at bench_render's batch and over every scenario
+    def cost(Bt, code):
+        """Operations and bytes of one cast of Bt frames."""
+        vis = [(int(c), int(r)) for c, r in code.tolist() if c >= 0]
+        nface = (faces[:, :, 3] < 1e9).sum(-1).tolist()
+        per_ray = sum(RAY_OPS[c] if c < 5 else RAY_OPS_HULL
+                      + RAY_OPS_FACE * nface[r] for c, r in vis)
+        ops = Bt * N * (per_ray + RAY_OPS_PIXEL)
+        nbyte = (Bt * t.ngeom * 16 * 4 + code.numel() * 4
+                 + faces.numel() * 4 + N * 12 + Bt * N * 20)
+        return ops, nbyte
+
+    row = None
+    for Bt in RENDER_FRAMES:
+        kin = fk(model, state.qpos[:Bt])
+        cast.launches = 0
+        rgb, dbuf = raycast.render_rgbd(model, kin, cam)
+        torch.cuda.synchronize()
+        launches = cast.launches
+        if launches != 1:
+            raise AssertionError(f"render_rgbd launched the ray cast "
+                                 f"{launches} times")
+        if rgb.shape != (Bt, IMAGE, IMAGE, 3) or not bool(
+                (torch.isfinite(dbuf) & (dbuf >= 0) & (dbuf <= 1)).all()):
+            raise AssertionError("render_rgbd: wrong shape or depth")
+        wall = timed_ms(lambda: raycast.render_rgbd(model, kin, cam), 10)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            raycast.render_rgbd(model, kin, cam)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+        busy = sum(e.self_device_time_total for e in ev) / 1e3
+        dev_ms = sum(e.self_device_time_total for e in ev
+                     if "raycast_kernel" in e.key) / 1e3
+        tb = raycast.geom_table(model, kin, cam)
+        ops, nbyte = cost(Bt, tb[1])
+        bound = max(ops / PEAK_F32_FLOP_PER_S, nbyte / PEAK_BYTES_PER_S) * 1e3
+        log(f"  render_rgbd B={Bt}: {wall:.2f} ms, {Bt / wall * 1e3:.0f} "
+            f"frames/s ({IMAGE} x {IMAGE} RGB-D); ray-cast launches "
+            f"{launches}; device {busy:.2f} ms ({busy / wall:.1%} of the "
+            f"wall time), the kernel {dev_ms:.3f} ms, bound {bound:.4f} ms "
+            f"({ops:.3e} ops, {nbyte:.3e} bytes)")
+        if Bt == RENDER_FRAMES[0]:
+            # the camera's tables made anew in every call (as a fresh
+            # camera would), against the kept ones timed above
+            fresh = timed_ms(lambda: (cam.tables.clear(), raycast.render_rgbd(
+                model, kin, cam)), 10)
+            log(f"  render_rgbd B={Bt} with the tables made in the call: "
+                f"{fresh:.2f} ms ({fresh - wall:+.2f} ms)")
+        # the kernel at this batch against its plain version: every frame
+        # at bench_render's batch, the last 16 frames over every scenario
+        got = cast(*tb, dn)
+        if Bt == RENDER_FRAMES[0]:
+            ms = event_ms(lambda: cast(*tb, dn), 10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = cast.plain(*tb, dn)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            held = "every frame"
+        else:
+            got = tuple(x[-16:] for x in got)
+            want = cast.plain(tb[0][-16:], tb[1], tb[2], dn)
+            held = f"frames {Bt - 16}-{Bt - 1}"
+        diff, s_rel, n_abs = compare(got, want)
+        log(f"  ray cast vs plain at B={Bt}, {held}: geom differs on "
+            f"{diff:.3e} of the pixels, max |ds*| / s* {s_rel:.3e}, max "
+            f"|dnormal| {n_abs:.3e}; equal to the bit "
+            f"{all(torch.equal(a, b) for a, b in zip(got, want))}")
+        check("raycast", diff, CAST_TOL["gid"], f"B={Bt}: share of pixels "
+              "whose geom differs")
+        check("raycast", s_rel, CAST_TOL["s"], f"B={Bt}: max |ds*| / s* "
+              "where the geom agrees")
+        check("raycast", n_abs, CAST_TOL["n"], f"B={Bt}: max |dnormal| where "
+              "the geom agrees")
+        max_err = max(max_err, s_rel, n_abs)
+        del got, want
+        if Bt == RENDER_FRAMES[0]:
+            row = {"name": "raycast", "route": "cuda",
+                   "source": "mujoco_rl_ur5_tpu_torch/csrc/raycast.cu",
+                   "replaces": "mujoco_rl_ur5_tpu/render/pallas_raycast.py:50",
+                   "launches": None, "max_abs_err": max_err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": ("operations" if ops / PEAK_F32_FLOP_PER_S
+                                >= nbyte / PEAK_BYTES_PER_S else "bytes"),
+                   "library_ms": None, "device_ms": dev_ms}
+            log(f"  ray cast alone B={Bt}: {ms:.3f} ms (device "
+                f"{dev_ms:.3f} ms), plain {plain_ms:.1f} ms, bound "
+                f"{bound:.4f} ms")
+        else:
+            row["launches"] = launches
+        del kin, rgb, dbuf, tb
+    row["max_abs_err"] = max_err
+
+    # 10c. the arm panned so that the pads hang over the bin
+    qp = state.qpos[:16].clone()
+    qp[:, :8] = torch.tensor(PADS_OVER_BIN, device=qp.device)
+    kin = fk(model, qp)
+    rgb, dbuf = raycast.render_rgbd(model, kin, cam)
+    par, code, faces = raycast.geom_table(model, kin, cam)
+    s, gid, _ = cast(par, code, faces, dn)
+    hit = s < raycast.BIG / 2
+    per = torch.bincount(code[gid.long(), 0][hit].long(), minlength=6)
+    names = ("plane", "sphere", "box", "capsule", "cylinder", "hull")
+    log("  panned arm, 16 frames: pixels won per branch " + ", ".join(
+        f"{k} {int(v)}" for k, v in zip(names, per)))
+    if not bool((per > 0).all()):
+        raise AssertionError("a branch of the ray cast wins no pixel")
+
+    # 10d. geometry of frame 0: every hit pixel back-projects onto the
+    # surface of the geom that won it; the floor reads the camera's height
+    H = W = IMAGE
+    depth = camera.depth_2_meters(cam, dbuf[0]).flip(0, 1)    # unflipped
+    PY, PX = torch.meshgrid(torch.arange(H, device=qp.device),
+                            torch.arange(W, device=qp.device), indexing="ij")
+    world = camera.pixel_2_world(cam, PX, PY, depth).reshape(-1, 3)
+    g0, h0 = gid[0].long(), hit[0]
+    gpos, gquat = geom_poses(model, kin)
+    dist = surface_distance(model, gpos[0], gquat[0], g0, world).abs()
+    img = torch.where(h0, g0, -1).reshape(H, W)
+    edge = torch.zeros_like(img, dtype=torch.bool)
+    edge[1:] |= img[1:] != img[:-1]
+    edge[:-1] |= img[:-1] != img[1:]
+    edge[:, 1:] |= img[:, 1:] != img[:, :-1]
+    edge[:, :-1] |= img[:, :-1] != img[:, 1:]
+    edge = edge.flatten()
+    inner, rim = h0 & ~edge, h0 & edge
+    floor = h0 & (g0 == t.geom_id("floor"))
+    floor_err = float((depth.flatten()[floor] - 2.0).abs().max())
+    log(f"  geometry, frame 0: {int(inner.sum())} inner and {int(rim.sum())}"
+        f" silhouette hit pixels, {int(floor.sum())} on the floor")
+    check("geometry", float(dist[inner].max()), 1e-3, "inner pixels' "
+          "distance to the surface they hit (m)")
+    check("geometry", float(dist[rim].max()), 2e-3, "silhouette pixels' "
+          "distance to the surface they hit (m)")
+    check("geometry", floor_err, 1e-4, "floor pixels' |depth - 2 m| (m)")
+    return row
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -668,6 +1089,13 @@ def main() -> int:
     )
     from mujoco_rl_ur5_tpu_torch.physics import cuda_chain as cc
 
+    clock = [time.perf_counter()] * 2
+
+    def stamp(what):
+        now = time.perf_counter()
+        log(f"[{what}: {now - clock[1]:.1f} s; run {now - clock[0]:.1f} s]")
+        clock[1] = now
+
     # 1. device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -682,7 +1110,9 @@ def main() -> int:
     mpc = GraspMPC.from_scene(ASSET, horizon=H, substeps=SUBSTEPS,
                               iters=ITERS, device="cuda")
     from mujoco_rl_ur5_tpu_torch.physics import cuda_collide
-    srcs = mpc.kernel_sources() + cuda_collide.kernel_sources()
+    from mujoco_rl_ur5_tpu_torch.render import cuda_raycast
+    srcs = (mpc.kernel_sources() + cuda_collide.kernel_sources()
+            + cuda_raycast.kernel_sources())
     t0 = time.perf_counter()
     _build.build_many(srcs)
     log(f"build: {len(srcs)} units in {time.perf_counter() - t0:.1f} s")
@@ -690,6 +1120,7 @@ def main() -> int:
     for i, src in enumerate(srcs):
         for line in _build.ptxas_report(src):
             log(f"  ptxas {src.name}{variants.get(i, '')}: {line}")
+    stamp("phases 1-2")
 
     plan, nx, nu, nq, w = mpc.plan, mpc.nx, mpc.nu, mpc.nq, mpc.w
     x0_np, q_refs_np = tracking_problem(B, H, seed=0)
@@ -1039,10 +1470,23 @@ def main() -> int:
         if not float(ri.cost) < float(starts[what]):
             raise AssertionError(f"{what} did not lower the cost")
 
-    # 7-8. the contact step
-    table.update(contact_step(log, opts.dump_settle))
+    stamp("phases 3-6")
 
-    print(json.dumps({"kernels": [table[name] for name in names + COLLIDE]}))
+    # 7-8. the contact step
+    contact_step(log, opts.dump_settle)
+    stamp("phases 7-8")
+
+    # 9. the object pile, every collide kernel
+    rows, obj_model, settled = object_pile(log)
+    table.update(rows)
+    stamp("phase 9")
+
+    # 10. its RGB-D observation
+    table["raycast"] = observation(log, obj_model, settled)
+    stamp("phase 10")
+
+    print(json.dumps({"kernels": [table[name] for name in
+                                  names + OBJ_COLLIDE + ("raycast",)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,23 +1,30 @@
 """mujoco_rl_ur5_tpu_torch: the PyTorch/CUDA port of mujoco_rl_ur5_tpu.
 
 A second package beside the JAX one, written for one NVIDIA H100. It holds
-the batched grasp-MPC (reach and track) and the batched contact step, and
-what they stand on:
+the batched grasp-MPC (reach and track), the batched contact step and the
+RGB-D observation, and what they stand on:
 
-  scene/    MJCF parser and compiler (primitive geoms, cylinder prism
-            hulls, contact pairs, invweights), arm reduction, State
+  scene/    MJCF parser and compiler (primitive and mesh geoms, STL meshes
+            and their hulls, cylinder prism hulls, contact pairs,
+            invweights, cameras, colours), arm reduction, State
   ops/      unrolled small-block Cholesky solves, quaternion and spatial
             algebra, device-resident constant tables
   physics/  chain dynamics and the generated-substep CUDA kernels
             (cuda_chain.py); batched kinematics, dynamics, the plain
             narrowphase, the contact solver, and the narrowphase kernels
-            box_box, hull_hull, box_hull, plane_hull (cuda_collide.py)
+            box_box, hull_hull, box_hull, plane_hull, sphere_hull and
+            capsule_hull (cuda_collide.py)
+  render/   the camera, the batched ray-cast RGB-D renderer and its
+            ray-cast kernel (cuda_raycast.py)
   mpc/      Riccati backward (torch and the CUDA kernel), the batched and
             the generic iLQR, GraspMPC
   csrc/     the kernels' CUDA sources, built by _build.py with nvcc
-  assets/   ur5_2finger_arm.xml (the 8-dof arm scene) and
+  assets/   ur5_2finger_arm.xml (the 8-dof arm scene),
             ur5_2finger_pile.xml (the arm, a bin and 40 free boxes and
-            cylinders), written by hand
+            cylinders), written by hand, and ur5_2finger_objects.xml (the
+            reference pile's 10 spheres, 10 boxes, 10 cylinders and 10
+            capsules, mesh finger pads finger_pad.stl, a top_down camera),
+            written by make_objects.py
 
 Entry points::
 
@@ -35,6 +42,13 @@ Entry points::
     state, warm = dynamics.step_warm(model, state, warm, ncon=128,
                                      iterations=100)
 
+    from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
+    from mujoco_rl_ur5_tpu_torch.render.camera import make_camera
+    from mujoco_rl_ur5_tpu_torch.render.raycast import render_rgbd
+    model = load_model(OBJECTS)
+    cam = make_camera(model, "top_down", 200, 200)
+    rgb, depth = render_rgbd(model, fk(model, state.qpos), cam)
+
 The package imports torch and numpy, never jax, and nothing of
 mujoco_rl_ur5_tpu.
 """
@@ -44,3 +58,4 @@ import os
 ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
                      "ur5_2finger_arm.xml")
 PILE = os.path.join(os.path.dirname(ASSET), "ur5_2finger_pile.xml")
+OBJECTS = os.path.join(os.path.dirname(ASSET), "ur5_2finger_objects.xml")

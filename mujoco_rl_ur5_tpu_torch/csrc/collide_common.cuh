@@ -1,5 +1,6 @@
-// Shared device code of the four narrowphase kernels (collide_*.cu): small
-// vector helpers, the stable top-k, and the box-box and hull-hull bodies.
+// Shared device code of the six narrowphase kernels (collide_*.cu): small
+// vector helpers, the stable top-k, the box-box and hull-hull bodies and the
+// sphere probes of sphere-hull and capsule-hull.
 //
 // Each body computes one (pair, scenario) in registers, with the arithmetic,
 // guards and tie rules of mujoco_rl_ur5_tpu_torch/physics/collision.py (the
@@ -415,6 +416,51 @@ __device__ __forceinline__ void hull_hull(const Hull& h1, const Pose& P1,
 #pragma unroll
     for (int r = 0; r < 3; ++r) p[r] = vw[r] - 0.5f * dk * n[r];
     store(out_pos, out_nrm, out_dist, slot0 + k, p, nrm, dk);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// sphere probes against a hull (collision._sphere_hull_point): for each of P
+// sphere centers, the hull face of largest signed distance (the first of
+// equals), then one contact along it: 1 slot for a sphere, 5 for a capsule.
+// The faces are moved to world once and scored against every center
+// ---------------------------------------------------------------------------
+
+template <int P>
+__device__ __forceinline__ void sphere_probes(const Hull& h, const Pose& Ph,
+                                              const float (*c)[3], float r,
+                                              float* __restrict__ out_pos,
+                                              float* __restrict__ out_nrm,
+                                              float* __restrict__ out_dist,
+                                              size_t slot0) {
+  float best[P], nb[P][3];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    best[k] = -COLLIDE_HUGE;
+    nb[k][0] = nb[k][1] = nb[k][2] = 0.f;
+  }
+  for (int f = 0; f < h.F; ++f) {
+    float n[3];
+    const float d = hull_face(h, Ph, f, n);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float score = dot3(n, c[k]) - d;
+      if (f == 0 || score > best[k]) {
+        best[k] = score;
+        nb[k][0] = n[0];
+        nb[k][1] = n[1];
+        nb[k][2] = n[2];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const float dist = best[k] - r;
+    const float h2 = r + 0.5f * dist;
+    const float p[3] = {c[k][0] - nb[k][0] * h2, c[k][1] - nb[k][1] * h2,
+                        c[k][2] - nb[k][2] * h2};
+    const float nrm[3] = {-nb[k][0], -nb[k][1], -nb[k][2]};
+    store(out_pos, out_nrm, out_dist, slot0 + k, p, nrm, dist);
   }
 }
 

@@ -393,9 +393,10 @@ def plane_hull(p1, q1, s1, p2, q2, v2, m2, n2, d2):
 
 
 def _sphere_hull_point(c, r, nw, dw):
-    """Sphere center c (..., 3) against world faces (..., F, 3)."""
+    """Sphere center c (..., 3) against world faces (..., F, 3): the face
+    of largest signed distance, the first of equals."""
     nw = nw.expand(c.shape[:-1] + nw.shape[-2:])
-    scores = (nw @ c[..., None])[..., 0] - dw
+    scores = _dot3(nw, c[..., None, :]) - dw
     f = torch.argmax(scores, -1, keepdim=True)
     sdf = torch.gather(scores, -1, f)[..., 0]
     nf = torch.gather(nw, -2, f[..., None].expand(f.shape + (3,)))[..., 0, :]
@@ -410,12 +411,16 @@ def sphere_hull(p1, q1, s1, p2, q2, v2, m2, n2, d2):
 
 
 def capsule_hull(p1, q1, s1, p2, q2, v2, m2, n2, d2):
-    """5 axis samples as spheres (ends, center-nearest, midpoints)."""
+    """5 axis samples as spheres (ends, center-nearest, midpoints). The
+    hull's center is the mean of its real vertices, summed in index order,
+    and the axis the rotation's z column (as the kernel computes both)."""
     vw, nw, dw = _hull_world(p2, q2, v2, n2, d2)
     mk = (m2 > 0.5).to(vw.dtype)
-    center = (vw * mk[..., None]).sum(-2) / torch.clamp_min(
-        mk.sum(-1), 1.0)[..., None]
-    u = _zaxis(q1, p1)
+    acc = vw[..., 0, :] * mk[..., 0, None]
+    for v in range(1, vw.shape[-2]):
+        acc = acc + vw[..., v, :] * mk[..., v, None]
+    center = acc / torch.clamp_min(mk.sum(-1), 1.0)[..., None]
+    u = quat_to_mat(q1)[..., :, 2]
     r, hl = s1[..., 0], s1[..., 1]
     tmid = torch.clamp(_dot3(center - p1, u), -hl, hl)
     ts = torch.stack([-hl, hl, tmid, 0.5 * (hl + tmid), 0.5 * (-hl + tmid)],

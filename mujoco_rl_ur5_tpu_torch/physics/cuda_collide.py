@@ -1,13 +1,15 @@
 """The contact step's narrowphase kernels, written by hand for Hopper: the
 port's counterpart of the JAX package's physics/pallas_collide.py.
 
-Four kernels carry the groups of the pile scene (boxes and cylinders; a
-cylinder collides as a 16-gon prism hull):
+Six kernels carry the hull and box-box groups of the pile scenes (a
+cylinder collides as a 16-gon prism hull, a mesh as its convex hull):
 
-  ``box_box_batched``     csrc/collide_box_box.cu     (pallas_collide.py:675)
-  ``hull_hull_batched``   csrc/collide_hull_hull.cu   (:689)
-  ``box_hull_batched``    csrc/collide_box_hull.cu    (:703)
-  ``plane_hull_batched``  csrc/collide_plane_hull.cu  (:715)
+  ``box_box_batched``       csrc/collide_box_box.cu       (pallas_collide.py:675)
+  ``hull_hull_batched``     csrc/collide_hull_hull.cu     (:689)
+  ``box_hull_batched``      csrc/collide_box_hull.cu      (:703)
+  ``plane_hull_batched``    csrc/collide_plane_hull.cu    (:715)
+  ``sphere_hull_batched``   csrc/collide_sphere_hull.cu   (:727)
+  ``capsule_hull_batched``  csrc/collide_capsule_hull.cu  (:739)
 
 Each takes the scenario batch at once: per-geom collision poses pos
 (B, G, 3) and quat (B, G, 4), the model's geom tables (sizes, and the hull
@@ -18,8 +20,9 @@ pair to its wrapper, and ``<wrapper>.plain`` is its plain version. One thread co
 scenario) and reads the poses and the small hull tables by id, where the
 TPU kernel was handed per-pair copies of every table (the JAX package
 gathers (B, 64, 32, 3) vertex tables per capped group). Each returns pos
-(B, n, K, 3), normal (B, n, K, 3) and dist (B, n, K), K = 9 for box-box and
-8 for the hull groups, with physics/collision.py's arithmetic, operation
+(B, n, K, 3), normal (B, n, K, 3) and dist (B, n, K), K = 9 for box-box,
+8 for hull-hull, box-hull and plane-hull, 1 for sphere-hull and 5 for
+capsule-hull, with physics/collision.py's arithmetic, operation
 for operation, and its tie rules (csrc/collide_common.cuh): built with
 ``-fmad=false``, a kernel and its plain version agree to the bit, so
 candidates of equal depth (a resting box's four bottom corners, an upright
@@ -27,10 +30,9 @@ prism's rim) break their ties alike.
 
 Routing: CPU tensors run the plain version beside each wrapper (the
 collision.py function on per-pair gathers); CUDA tensors launch the kernel,
-checked, and count it in ``<wrapper>.launches``; anything else raises. The
-sphere-hull and capsule-hull groups have no kernel yet (PERF.md rows 10-11,
-ROADMAP.md Queue 2): on CUDA tensors they raise, on CPU tensors they run
-their plain versions.
+checked, and count it in ``<wrapper>.launches``; anything else raises.
+The hull tables' widths V and F are the model's (hull_maxv, hull_maxf) and
+reach the kernels at launch; no kernel holds a table in a fixed-size array.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from mujoco_rl_ur5_tpu_torch import _build
 from mujoco_rl_ur5_tpu_torch.physics import collision
 from mujoco_rl_ur5_tpu_torch.physics.cuda_chain import _route, _stream
 
-KERNELS = ("box_box", "hull_hull", "box_hull", "plane_hull")
+KERNELS = ("box_box", "hull_hull", "box_hull", "plane_hull", "sphere_hull",
+           "capsule_hull")
 
 
 class Hulls(NamedTuple):
@@ -95,6 +98,18 @@ def plane_hull_plain(pos, quat, size, hulls, g1, g2):
                                 *_hull_rows(hulls, g2))
 
 
+def sphere_hull_plain(pos, quat, size, hulls, g1, g2):
+    return collision.sphere_hull(_rows(pos, g1), _rows(quat, g1), size[g1],
+                                 _rows(pos, g2), _rows(quat, g2),
+                                 *_hull_rows(hulls, g2))
+
+
+def capsule_hull_plain(pos, quat, size, hulls, g1, g2):
+    return collision.capsule_hull(_rows(pos, g1), _rows(quat, g1), size[g1],
+                                  _rows(pos, g2), _rows(quat, g2),
+                                  *_hull_rows(hulls, g2))
+
+
 # -- kernels --------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -119,9 +134,10 @@ def kernel_sources() -> list:
     return [source(k) for k in KERNELS]
 
 
-def _launch(kernel: str, K: int, pos, quat, size, hulls, g1, g2):
+def _launch(wrapper, kernel: str, K: int, pos, quat, size, hulls, g1, g2):
     """Check the operands, lay them out as the kernel reads them and
-    launch; returns (pos, normal, dist)."""
+    launch, counted in ``wrapper.launches``; returns (pos, normal,
+    dist)."""
     B, G = pos.shape[0], pos.shape[1]
     n = g1.shape[-1]
     dev = pos.device
@@ -155,75 +171,44 @@ def _launch(kernel: str, K: int, pos, quat, size, hulls, g1, g2):
                     ids[0].data_ptr(), ids[1].data_ptr(), out_pos.data_ptr(),
                     out_nrm.data_ptr(), out_dist.data_ptr(), B, n, G, V, F,
                     _stream(pos))
+        wrapper.launches += 1
     return out_pos, out_nrm, out_dist
 
 
-def box_box_batched(pos, quat, size, hulls, g1, g2):
-    """Box-box corners both ways and the 15-axis edge SAT: 9 slots (the
-    boxes come from their sizes: ``hulls`` is not read)."""
-    if not _route(pos, quat, size):
-        return box_box_plain(pos, quat, size, hulls, g1, g2)
-    out = _launch("box_box", 9, pos, quat, size, None, g1, g2)
-    box_box_batched.launches += 1
-    return out
-
-
-def hull_hull_batched(pos, quat, size, hulls, g1, g2):
-    """Least-overlap face over both hulls, 8 deepest vertices: 8 slots."""
-    if not _route(pos, quat, size):
-        return hull_hull_plain(pos, quat, size, hulls, g1, g2)
-    out = _launch("hull_hull", 8, pos, quat, size, hulls, g1, g2)
-    hull_hull_batched.launches += 1
-    return out
-
-
-def box_hull_batched(pos, quat, size, hulls, g1, g2):
-    """A box as an 8-vertex / 6-face hull against a hull: 8 slots."""
-    if not _route(pos, quat, size):
-        return box_hull_plain(pos, quat, size, hulls, g1, g2)
-    out = _launch("box_hull", 8, pos, quat, size, hulls, g1, g2)
-    box_hull_batched.launches += 1
-    return out
-
-
-def plane_hull_batched(pos, quat, size, hulls, g1, g2):
-    """The 8 deepest hull vertices under a plane: 8 slots."""
-    if not _route(pos, quat, size):
-        return plane_hull_plain(pos, quat, size, hulls, g1, g2)
-    out = _launch("plane_hull", 8, pos, quat, size, hulls, g1, g2)
-    plane_hull_batched.launches += 1
-    return out
-
-
-for _w, _p in ((box_box_batched, box_box_plain),
-               (hull_hull_batched, hull_hull_plain),
-               (box_hull_batched, box_hull_plain),
-               (plane_hull_batched, plane_hull_plain)):
-    _w.launches, _w.plain = 0, _p
-
-
-ROWS = {"sphere_hull": 10, "capsule_hull": 11}   # PERF.md kernel table
-
-
-def _no_kernel(name: str, fn):
-    def plain(pos, quat, size, hulls, g1, g2):
-        return fn(_rows(pos, g1), _rows(quat, g1), size[g1], _rows(pos, g2),
-                  _rows(quat, g2), *_hull_rows(hulls, g2))
+def _wrapper(kernel: str, K: int, plain, doc: str):
+    """``<kernel>_batched``: the plain version on CPU tensors; on CUDA
+    tensors the kernel's launch, counted in ``.launches``."""
+    tables = kernel != "box_box"        # box-box reads sizes, not hulls
 
     def batched(pos, quat, size, hulls, g1, g2):
-        if _route(pos, quat, size):
-            raise NotImplementedError(
-                f"{name}_batched has no CUDA kernel yet (PERF.md kernel "
-                f"table row {ROWS[name]}, ROADMAP.md Queue 2); run the "
-                "contact step on CPU tensors or take the pile without "
-                "spheres and capsules")
-        return plain(pos, quat, size, hulls, g1, g2)
-    batched.__name__, batched.plain = f"{name}_batched", plain
+        if not _route(pos, quat, size):
+            return plain(pos, quat, size, hulls, g1, g2)
+        return _launch(batched, kernel, K, pos, quat, size,
+                       hulls if tables else None, g1, g2)
+    batched.__name__ = batched.__qualname__ = f"{kernel}_batched"
+    batched.__doc__ = doc
+    batched.launches, batched.plain = 0, plain
     return batched
 
 
-sphere_hull_batched = _no_kernel("sphere_hull", collision.sphere_hull)
-capsule_hull_batched = _no_kernel("capsule_hull", collision.capsule_hull)
+box_box_batched = _wrapper(
+    "box_box", 9, box_box_plain, "Box-box corners both ways and the 15-axis "
+    "edge SAT: 9 slots (the boxes come from their sizes).")
+hull_hull_batched = _wrapper(
+    "hull_hull", 8, hull_hull_plain, "Least-overlap face over both hulls, "
+    "8 deepest vertices: 8 slots.")
+box_hull_batched = _wrapper(
+    "box_hull", 8, box_hull_plain, "A box as an 8-vertex / 6-face hull "
+    "against a hull: 8 slots.")
+plane_hull_batched = _wrapper(
+    "plane_hull", 8, plane_hull_plain, "The 8 deepest hull vertices under "
+    "a plane: 8 slots.")
+sphere_hull_batched = _wrapper(
+    "sphere_hull", 1, sphere_hull_plain, "A sphere's center against the "
+    "hull's faces: 1 slot.")
+capsule_hull_batched = _wrapper(
+    "capsule_hull", 5, capsule_hull_plain, "Five sphere probes along a "
+    "capsule's axis against a hull: 5 slots.")
 
 # the wrapper of each (type1, type2) pair group; the other primitive groups
 # run collision.NARROWPHASE in plain torch, as in the JAX package

@@ -1,18 +1,21 @@
 """Lower a parsed :class:`SceneSpec` to a :class:`Model`.
 
 The port's copy of the JAX package's ``compile_spec`` (scene/compile.py
-there), for scenes of primitive geoms:
+there), for scenes of primitive and mesh geoms:
 
   * bodies flattened in document (MuJoCo) order, qpos/dof addressing as
     MuJoCo's, kinematic trees with the per-tree dof layout (``dof_tree``,
     ``dof_treeidx``, ``mtdof``, ``dof_ancestors``), body levels, and the
     qpos0 rest kinematics;
   * inertials, explicit or from the geoms (``inertiafromgeom``, or a body
-    without ``<inertial>``): the primitive types' mass properties at the
-    geom density; ``fullinertia`` is diagonalised as MuJoCo does;
-  * geoms and their collision proxies: cylinders collide as 16-gon prism
-    hulls (``_cylinder_prism_hull``), built without any mesh file, in the
-    padded hull tables; bounding radii for the broadphase;
+    without ``<inertial>``): the primitive types' mass properties, and a
+    mesh's legacy volume integrals (scene/mesh.py), at the geom density;
+    ``fullinertia`` is diagonalised as MuJoCo does;
+  * geoms and their collision proxies: meshes collide as their convex
+    hulls (scene/mesh.py) and cylinders as 16-gon prism hulls
+    (``_cylinder_prism_hull``), together in the padded hull tables, one row
+    per mesh or cylinder size in name order; bounding radii for the
+    broadphase; colours;
   * joint limits, motors and joint equalities;
   * the static contact pairs (weld filter, contype/conaffinity, excludes,
     no plane-plane, plane/lower type first), grouped by type pair, with
@@ -20,9 +23,10 @@ there), for scenes of primitive geoms:
   * the pruning of pairs between bodies that are not free whose proxies
     already overlap at qpos0, and the qpos0 constraint-mass constants
     ``dof_invweight0``/``geom_invweight0``, both through the port's own
-    batched FK, collide and dynamics on the CPU.
+    batched FK, collide and dynamics on the CPU;
+  * the worldbody's fixed cameras, the depth range ``visual/map`` and the
+    ``extent`` statistic that scales it (the renderer's, render/).
 
-Mesh geoms (STL loading, scene/mesh.py) are not compiled yet and raise.
 ``compile_spec``/``compile_file`` give the host (numpy) model;
 ``load_model`` gives it on a device, the card unless the caller asks for
 the CPU.
@@ -42,6 +46,7 @@ from mujoco_rl_ur5_tpu_torch.physics.collision import (
 )
 from mujoco_rl_ur5_tpu_torch.physics.constraints import collide
 from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
+from mujoco_rl_ur5_tpu_torch.scene import mesh
 from mujoco_rl_ur5_tpu_torch.scene.mjcf import (
     GEOM_BOX, GEOM_CAPSULE, GEOM_CYLINDER, GEOM_ELLIPSOID, GEOM_MESH,
     GEOM_PLANE, GEOM_SPHERE, JNT_BALL, JNT_DOF, JNT_FREE, JNT_HINGE, JNT_NQ,
@@ -56,40 +61,6 @@ def _quat_rot(q, v):
     return v + 2.0 * (w * uv + np.cross(u, uv))
 
 
-def _mat2quat(m: np.ndarray) -> np.ndarray:
-    tr = np.trace(m)
-    if tr > 0:
-        s = np.sqrt(tr + 1.0) * 2
-        q = np.array([0.25 * s, (m[2, 1] - m[1, 2]) / s,
-                      (m[0, 2] - m[2, 0]) / s, (m[1, 0] - m[0, 1]) / s])
-    else:
-        i = int(np.argmax(np.diag(m)))
-        j, k = (i + 1) % 3, (i + 2) % 3
-        s = np.sqrt(max(m[i, i] - m[j, j] - m[k, k] + 1.0, 1e-18)) * 2
-        q = np.empty(4)
-        q[0] = (m[k, j] - m[j, k]) / s
-        q[1 + i] = 0.25 * s
-        q[1 + j] = (m[j, i] + m[i, j]) / s
-        q[1 + k] = (m[k, i] + m[i, k]) / s
-    return q / np.linalg.norm(q)
-
-
-def principal_inertia(inertia: np.ndarray):
-    """Diagonalise a 3x3 inertia -> (diag (3,), quat (4,) w-first): a
-    right-handed eigenbasis with eigenvalues descending; an already
-    diagonal tensor keeps its axis order and the identity orientation."""
-    scale = max(np.abs(inertia).max(), 1e-30)
-    off = inertia - np.diag(np.diag(inertia))
-    if np.abs(off).max() < 1e-9 * scale:
-        return np.diag(inertia).copy(), np.array([1.0, 0, 0, 0])
-    w, v = np.linalg.eigh(inertia)
-    order = np.argsort(w)[::-1]
-    w, v = w[order], v[:, order]
-    if np.linalg.det(v) < 0:
-        v[:, 2] *= -1
-    return w, _mat2quat(v)
-
-
 def _quat_mat(q):
     w, x, y, z = q
     return np.array([
@@ -98,7 +69,7 @@ def _quat_mat(q):
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
 
 
-def _geom_mass_props(g: GeomSpec):
+def _geom_mass_props(g: GeomSpec, meshes: dict):
     """(mass, com, inertia about the COM in the geom frame) at the geom's
     density; planes are massless."""
     t, s, rho = g.type, g.size, g.density
@@ -130,17 +101,12 @@ def _geom_mass_props(g: GeomSpec):
                + 2 * ((83.0 / 320.0) * m_hs * r * r + m_hs * d * d))
         return m_cyl + 2 * m_hs, np.zeros(3), np.diag([ixy, ixy, iz])
     if t == GEOM_MESH:
-        raise ValueError(_mesh_error(g))
+        md = meshes[g.mesh]
+        return rho * md.volume, md.com.copy(), rho * md.inertia_com
     return 0.0, np.zeros(3), np.zeros((3, 3))
 
 
-def _mesh_error(g: GeomSpec) -> str:
-    return (f"geom '{g.name}': mesh geoms need scene/mesh.py (STL loading, "
-            "hulls and the mass properties inertiafromgeom takes from them), "
-            "which the port does not compile yet")
-
-
-def _body_inertial(body: BodySpec, inertiafromgeom: bool):
+def _body_inertial(body: BodySpec, meshes: dict, inertiafromgeom: bool):
     """Mass, COM, principal inertia and its orientation: from <inertial>,
     or from the geoms (inertiafromgeom, or a body without <inertial>)."""
     it = body.inertial
@@ -150,9 +116,9 @@ def _body_inertial(body: BodySpec, inertiafromgeom: bool):
         f = it.fullinertia if it.fullinertia is not None else np.zeros(6)
         full = np.array([[f[0], f[3], f[4]], [f[3], f[1], f[5]],
                          [f[4], f[5], f[2]]])
-        diag, q = principal_inertia(full)
+        diag, q = mesh.principal_inertia(1.0, full)
         return it.mass, it.pos, diag, quat_mul(it.quat, q)
-    props = [_geom_mass_props(g) for g in body.geoms]
+    props = [_geom_mass_props(g, meshes) for g in body.geoms]
     total = sum(m for m, _, _ in props)
     if total <= 0.0:
         return 0.0, np.zeros(3), np.zeros(3), np.array([1.0, 0, 0, 0])
@@ -164,7 +130,7 @@ def _body_inertial(body: BodySpec, inertiafromgeom: bool):
         d = g.pos + _quat_rot(g.quat, c) - com
         itot += r @ i_local @ r.T + m * (np.dot(d, d) * np.eye(3)
                                          - np.outer(d, d))
-    diag, q = principal_inertia(itot)
+    diag, q = mesh.principal_inertia(1.0, itot)
     return total, com, diag, q
 
 
@@ -206,6 +172,19 @@ def _geom_rbounds(col_type, col_size, geom_meshid, hull_verts, hull_vmask):
         else:
             rb[gi] = float(np.linalg.norm(s)) + 1e-3
     return rb
+
+
+def _extent(geom_specs, geom_body, xpos0, xquat0) -> float:
+    """The JAX package's stand-in for MuJoCo's stat.extent: the largest
+    side of the box around the geoms at qpos0 (each grown by its largest
+    size; planes by nothing)."""
+    centers, radii = [], []
+    for g, bid in zip(geom_specs, geom_body):
+        centers.append(xpos0[bid] + _quat_rot(xquat0[bid], g.pos))
+        radii.append(float(np.abs(g.size).max())
+                     if g.type != GEOM_PLANE else 0.0)
+    centers, radii = np.array(centers), np.array(radii)[:, None]
+    return float(np.max((centers + radii).max(0) - (centers - radii).min(0)))
 
 
 def compile_spec(spec: SceneSpec, dtype=np.float32) -> Model:
@@ -310,7 +289,8 @@ def compile_spec(spec: SceneSpec, dtype=np.float32) -> Model:
         else:
             qpos0[qa] = j.ref
 
-    # geoms and collision proxies: cylinders as prism hulls
+    # geoms and collision proxies: meshes as their hulls, cylinders as
+    # prism hulls
     geom_specs, geom_body = [], []
     for bid, b in enumerate(bodies):
         for g in b.geoms:
@@ -326,22 +306,30 @@ def compile_spec(spec: SceneSpec, dtype=np.float32) -> Model:
     g_margin = np.array([g.margin for g in geom_specs])
     g_condim = np.array([g.condim for g in geom_specs], np.int32)
     col_type = g_type.copy()
-    hulls, cyl_hull = {}, {}
+    hulls = {}
+    for name in sorted({g.mesh for g in geom_specs if g.type == GEOM_MESH}):
+        if name not in spec.meshes:
+            raise ValueError(f"a mesh geom names mesh {name!r}, which no "
+                             "<asset><mesh> declares (its mass properties "
+                             "and hull come from the mesh file)")
+        hulls[name] = mesh.process_mesh(name, spec.meshes[name],
+                                        spec.mesh_scales.get(name))
+    hull_of = {}
     for gi, g in enumerate(geom_specs):
         if g.type == GEOM_MESH:
-            raise ValueError(_mesh_error(g))
-        if g.type == GEOM_CYLINDER:
+            hull_of[gi] = g.mesh
+        elif g.type == GEOM_CYLINDER:
             key = (round(float(g_size[gi, 0]), 6),
                    round(float(g_size[gi, 1]), 6))
             name = f"__cylinder_{key[0]}_{key[1]}"
             if name not in hulls:
                 hulls[name] = _cylinder_prism_hull(*key)
-            cyl_hull[gi] = name
+            hull_of[gi] = name
             col_type[gi] = GEOM_MESH
     mesh_order = sorted(hulls)
     mesh_index = {n: i for i, n in enumerate(mesh_order)}
     geom_meshid = np.full(ngeom, -1, np.int32)
-    for gi, name in cyl_hull.items():
+    for gi, name in hull_of.items():
         geom_meshid[gi] = mesh_index[name]
     # padded hull tables: padded vertices masked out, padded faces at
     # offset 1e10 so they never win a signed-distance maximum
@@ -365,7 +353,8 @@ def compile_spec(spec: SceneSpec, dtype=np.float32) -> Model:
     body_ipos = np.zeros((nbody, 3))
     body_iquat = np.tile(np.array([1.0, 0, 0, 0]), (nbody, 1))
     for bid in range(1, nbody):
-        m, com, diag, q = _body_inertial(bodies[bid], spec.inertiafromgeom)
+        m, com, diag, q = _body_inertial(bodies[bid], hulls,
+                                         spec.inertiafromgeom)
         body_mass[bid], body_ipos[bid] = m, com
         body_inertia[bid], body_iquat[bid] = diag, q
 
@@ -450,6 +439,7 @@ def compile_spec(spec: SceneSpec, dtype=np.float32) -> Model:
                 body_ancestor_slots[bid, dof_treeidx[d]] = True
             cur = parent[cur]
 
+    cams = spec.worldbody.cameras      # fixed world cameras
     topo = Topology(
         nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ngeom, neq=neq,
         nlimit=nlimit, ntree=ntree, mtdof=mtdof,
@@ -479,7 +469,10 @@ def compile_spec(spec: SceneSpec, dtype=np.float32) -> Model:
         body_ancestor_slots=body_ancestor_slots,
         xpos0=xpos0, xquat0=xquat0, body_names=body_names,
         joint_names=joint_names,
-        geom_names=tuple(g.name for g in geom_specs))
+        geom_names=tuple(g.name for g in geom_specs),
+        ncam=len(cams), znear=spec.znear, zfar=spec.zfar,
+        extent=_extent(geom_specs, geom_body, xpos0, xquat0),
+        cam_names=tuple(c.name for c in cams))
 
     def arr(x, shape):
         return np.asarray(x, dtype).reshape(shape)
@@ -503,6 +496,7 @@ def compile_spec(spec: SceneSpec, dtype=np.float32) -> Model:
         geom_pos=arr([g.pos for g in geom_specs], (ngeom, 3)),
         geom_quat=arr([g.quat for g in geom_specs], (ngeom, 4)),
         geom_size=arr(g_size, (ngeom, 3)),
+        geom_rgba=arr([g.rgba for g in geom_specs], (ngeom, 4)),
         geom_rbound=arr(_geom_rbounds(col_type, g_size, geom_meshid,
                                       hull_verts, hull_vmask), (ngeom,)),
         geom_friction=arr(g_fric, (ngeom, 3)),
@@ -530,6 +524,9 @@ def compile_spec(spec: SceneSpec, dtype=np.float32) -> Model:
         pair_solref=arr(pair_solref, (len(p1g), 2)),
         pair_solimp=arr(pair_solimp, (len(p1g), 3)),
         pair_margin=arr(pair_margin, (len(p1g),)),
+        cam_pos=arr([c.pos for c in cams], (len(cams), 3)),
+        cam_quat=arr([c.quat for c in cams], (len(cams), 4)),
+        cam_fovy=arr([c.fovy for c in cams], (len(cams),)),
     )
     model = _prune_rest_penetrating_pairs(model)
     return _compute_invweight0(model)

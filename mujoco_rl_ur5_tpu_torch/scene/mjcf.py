@@ -1,11 +1,14 @@
 """MJCF (MuJoCo XML) parser -> plain-Python scene spec, the subset the arm
-planner and the contact step need.
+planner, the contact step and the renderer need.
 
 Host-side, numpy-only; the port's copy of the JAX package's parser cut to
-what the arm submodel and the contact scenes read:
+what the arm submodel, the contact scenes and the observation read:
 
-  * ``<compiler angle inertiafromgeom>`` and ``<option timestep gravity
-    iterations tolerance impratio cone>``;
+  * ``<compiler angle inertiafromgeom meshdir>``, ``<option timestep
+    gravity iterations tolerance impratio cone>`` and ``<visual><map znear
+    zfar>``;
+  * ``<asset>``: meshes (``file`` under ``meshdir``, ``scale``), textures
+    (their ``rgb1``) and materials (``rgba``, or their texture's colour);
   * nested ``<default>`` classes (joint, geom and motor attributes) and
     ``<include>`` files, resolved relative to the including file;
   * body trees with ``pos`` and ``quat``/``axisangle``/``euler``;
@@ -13,14 +16,14 @@ what the arm submodel and the contact scenes read:
     ``damping``, ``armature``, ``range``, ``limited``);
   * ``<inertial>`` with ``diaginertia`` or ``fullinertia``;
   * ``<geom>`` (type, size, pose, friction, contype/conaffinity, condim,
-    margin, solref, solimp, density; a mesh geom is parsed, and the
-    compiler refuses it until scene/mesh.py is ported);
+    margin, solref, solimp, density, mesh, rgba or material, group);
+  * ``<camera>`` (name, pos, orientation, fovy: fixed cameras);
   * ``<contact><exclude>``, motors (``gear``, ``ctrlrange``) and joint
     ``<equality>`` (``polycoef``, ``solref``, ``solimp``).
 
-The JAX parser also reads a geom's ``mass``, which its compiler never uses
-(masses come from ``density``), and the renderer's cameras, materials and
-mesh assets; the port leaves those out.
+The JAX parser also reads a geom's ``mass`` and a camera's ``mode`` and
+``target``, which its compiler never uses (masses come from ``density``,
+cameras are fixed); the port leaves them out.
 """
 
 from __future__ import annotations
@@ -91,6 +94,19 @@ class GeomSpec:
     solimp: np.ndarray = field(
         default_factory=lambda: np.array([0.9, 0.95, 0.001]))
     density: float = 1000.0
+    rgba: np.ndarray = field(
+        default_factory=lambda: np.array([0.5, 0.5, 0.5, 1.0]))
+    material: str = ""
+    mesh: str = ""
+    group: int = 0
+
+
+@dataclass
+class CameraSpec:
+    name: str = ""
+    pos: np.ndarray = field(default_factory=lambda: np.zeros(3))
+    quat: np.ndarray = field(default_factory=lambda: np.array([1.0, 0, 0, 0]))
+    fovy: float = 45.0
 
 
 @dataclass
@@ -111,6 +127,7 @@ class BodySpec:
     geoms: list[GeomSpec] = field(default_factory=list)
     bodies: list["BodySpec"] = field(default_factory=list)
     inertial: InertialSpec | None = None
+    cameras: list[CameraSpec] = field(default_factory=list)
 
 
 @dataclass
@@ -154,6 +171,11 @@ class SceneSpec:
     excludes: list[tuple[str, str]] = field(default_factory=list)
     inertiafromgeom: bool = True
     angle_deg: bool = False
+    meshes: dict = field(default_factory=dict)       # name -> path
+    mesh_scales: dict = field(default_factory=dict)  # name -> (3,)
+    materials: dict = field(default_factory=dict)    # name -> rgba
+    znear: float = 0.01      # visual/map, fractions of the extent
+    zfar: float = 50.0
 
 
 def quat_from_axisangle(axis, angle: float) -> np.ndarray:
@@ -251,9 +273,11 @@ def parse_mjcf(path: str) -> SceneSpec:
     spec = SceneSpec(model_name=root.get("model", ""))
 
     comp = root.find("compiler")
+    meshdir = ""
     if comp is not None:
         spec.angle_deg = comp.get("angle", "degree") == "degree"
         spec.inertiafromgeom = _bool(comp.get("inertiafromgeom"), True)
+        meshdir = comp.get("meshdir", "")
     opt = root.find("option")
     if opt is not None:
         o = spec.option
@@ -264,9 +288,15 @@ def parse_mjcf(path: str) -> SceneSpec:
         o.impratio = _fl(opt.get("impratio"), o.impratio)
         o.cone = opt.get("cone", o.cone)
 
+    vmap = root.find("visual/map")
+    if vmap is not None:
+        spec.znear = _fl(vmap.get("znear"), spec.znear)
+        spec.zfar = _fl(vmap.get("zfar"), spec.zfar)
+
     defaults = _Defaults()
     for d in root.findall("default"):
         defaults.absorb(d)
+    _parse_assets(root, spec, os.path.join(os.path.dirname(path), meshdir))
     spec.worldbody = _parse_body(root.find("worldbody"), defaults, spec,
                                  is_world=True)
 
@@ -303,6 +333,23 @@ def parse_mjcf(path: str) -> SceneSpec:
     return spec
 
 
+def _parse_assets(root: ET.Element, spec: SceneSpec, meshdir: str):
+    tex_rgb = {}
+    for el in (e for asset in root.findall("asset") for e in asset):
+        if el.tag == "mesh":
+            name = el.get("name") or os.path.splitext(
+                os.path.basename(el.get("file")))[0]
+            spec.meshes[name] = os.path.join(meshdir, el.get("file"))
+            if el.get("scale") is not None:
+                spec.mesh_scales[name] = _vec(el.get("scale"))
+        elif el.tag == "texture":
+            tex_rgb[el.get("name", "")] = _vec(el.get("rgb1"), [0.8] * 3)
+        elif el.tag == "material":
+            rgb = tex_rgb.get(el.get("texture", ""), np.full(3, 0.5))
+            spec.materials[el.get("name", "")] = _vec(
+                el.get("rgba"), np.concatenate([rgb, [1.0]]))
+
+
 def _parse_body(el: ET.Element, defaults: _Defaults, spec: SceneSpec,
                 is_world=False, inherited_class=None) -> BodySpec:
     body = BodySpec(name=el.get("name", "world" if is_world else ""))
@@ -334,6 +381,12 @@ def _parse_body(el: ET.Element, defaults: _Defaults, spec: SceneSpec,
             body.joints.append(j)
         elif child.tag == "geom":
             body.geoms.append(_parse_geom(child, defaults, spec, childclass))
+        elif child.tag == "camera":
+            body.cameras.append(CameraSpec(
+                name=child.get("name", ""),
+                pos=_vec(child.get("pos"), [0.0, 0, 0]),
+                quat=_orientation(child, spec.angle_deg),
+                fovy=_fl(child.get("fovy"), 45.0)))
         elif child.tag == "inertial":
             it = InertialSpec(pos=_vec(child.get("pos"), [0.0, 0, 0]),
                               quat=_orientation(child, spec.angle_deg),
@@ -361,7 +414,14 @@ def _parse_geom(el: ET.Element, defaults: _Defaults, spec: SceneSpec,
                  conaffinity=int(attrs.get("conaffinity", 1)),
                  condim=int(attrs.get("condim", 3)),
                  margin=_fl(attrs.get("margin"), 0.0),
-                 density=_fl(attrs.get("density"), 1000.0))
+                 density=_fl(attrs.get("density"), 1000.0),
+                 material=attrs.get("material", ""),
+                 mesh=attrs.get("mesh", ""),
+                 group=int(attrs.get("group", 0)))
+    if attrs.get("rgba") is not None:
+        g.rgba = _vec(attrs.get("rgba"))
+    elif g.material in spec.materials:
+        g.rgba = spec.materials[g.material].copy()
     if attrs.get("friction") is not None:
         g.friction = _vec(attrs.get("friction"), n=3)[:3]
     if attrs.get("solref") is not None:

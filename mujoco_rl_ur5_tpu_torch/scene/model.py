@@ -57,6 +57,10 @@ class Topology:
     gravity: tuple = (0.0, 0.0, -9.81)
     iterations: int = 100
     impratio: float = 1.0
+    ncam: int = 0
+    znear: float = 0.01               # visual/map, fractions of the extent
+    zfar: float = 50.0
+    extent: float = 1.0               # stat.extent (depth near / far scale)
     body_parent: np.ndarray = None    # (nbody,)
     body_jntadr: np.ndarray = None    # (nbody,) first joint, -1 if none
     body_jntnum: np.ndarray = None    # (nbody,)
@@ -97,6 +101,10 @@ class Topology:
     body_names: tuple = ()
     joint_names: tuple = ()
     geom_names: tuple = ()
+    cam_names: tuple = ()
+
+    def cam_id(self, name: str) -> int:
+        return self.cam_names.index(name)
 
     def body_id(self, name: str) -> int:
         return self.body_names.index(name)
@@ -129,6 +137,7 @@ class Model:
     geom_pos: np.ndarray = None       # (ngeom, 3)
     geom_quat: np.ndarray = None      # (ngeom, 4)
     geom_size: np.ndarray = None      # (ngeom, 3)
+    geom_rgba: np.ndarray = None      # (ngeom, 4)
     geom_rbound: np.ndarray = None    # (ngeom,) bounding radius, planes 1e10
     geom_friction: np.ndarray = None  # (ngeom, 3)
     geom_margin: np.ndarray = None    # (ngeom,)
@@ -157,6 +166,9 @@ class Model:
     pair_margin: np.ndarray = None    # (npair,)
     dof_invweight0: np.ndarray = None   # (nv,) diag(M^-1) at qpos0
     geom_invweight0: np.ndarray = None  # (ngeom,) body translational
+    cam_pos: np.ndarray = None        # (ncam, 3) world (worldbody cameras)
+    cam_quat: np.ndarray = None       # (ncam, 4)
+    cam_fovy: np.ndarray = None       # (ncam,) degrees
 
     def to(self, device) -> "Model":
         """The model with every numeric array a torch tensor on ``device``

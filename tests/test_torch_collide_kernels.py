@@ -1,4 +1,4 @@
-"""The four narrowphase kernel wrappers of physics/cuda_collide.py, on CPU
+"""The six narrowphase kernel wrappers of physics/cuda_collide.py, on CPU
 tensors (their plain versions), against the JAX package's reference
 functions vmapped over the batch: ``jax.vmap(jax.vmap(collision.*))``,
 which tests/test_pallas_collide.py holds equal to the TPU kernels.
@@ -10,9 +10,7 @@ model's hull tables by geom id; here every (scenario, pair, side) gets a
 geom of its own, so the same per-pair operands reach both. Compared slot
 by slot where the reference is active (dist < 1): dist, point and normal
 to 2e-5 absolute (float32 in another order); inactive slots stay inactive.
-The CPU route launches nothing, and the sphere-hull and capsule-hull
-groups, which have no kernel yet, run their plain versions on the CPU and
-raise where a kernel would be launched.
+The CPU route launches nothing.
 """
 
 import itertools
@@ -100,8 +98,7 @@ def _launches():
     return tuple(getattr(cc, k + "_batched").launches for k in cc.KERNELS)
 
 
-@pytest.mark.parametrize("kernel", cc.KERNELS + ("sphere_hull",
-                                                 "capsule_hull"))
+@pytest.mark.parametrize("kernel", cc.KERNELS)
 def test_wrapper_on_cpu_matches_jax_reference(kernel):
     ref_args, args = _case(kernel, seed=11 + len(kernel))
     ref = jax.jit(jax.vmap(jax.vmap(getattr(jc, kernel))))(
@@ -120,19 +117,10 @@ def test_wrapper_on_cpu_matches_jax_reference(kernel):
     assert np.all(gd[~act] >= 1.0)
 
 
-@pytest.mark.parametrize("kernel", ["sphere_hull", "capsule_hull"])
-def test_groups_without_a_kernel_raise_where_one_would_launch(
-        monkeypatch, kernel):
-    _, args = _case(kernel, seed=3)
-    monkeypatch.setattr(cc, "_route", lambda *ts: True)
-    with pytest.raises(NotImplementedError, match="row 1[01]"):
-        getattr(cc, kernel + "_batched")(*args)
-
-
 def test_kernel_sources_are_in_the_package():
     srcs = cc.kernel_sources()
     assert [s.name for s in srcs] == ["collide_" + k for k in cc.KERNELS]
-    assert len({s.key for s in srcs}) == 4
+    assert len({s.key for s in srcs}) == len(cc.KERNELS) == 6
     for s in srcs:
         assert "collide_common.cuh" in s.headers
         assert f"COLLIDE_ENTRY({s.entry[len('collide_'):]})" in s.text

@@ -41,7 +41,8 @@ from mujoco_rl_ur5_tpu_torch import PILE
 from mujoco_rl_ur5_tpu_torch.carry import model_from_arrays, warm_from_arrays
 from mujoco_rl_ur5_tpu_torch.physics import constraints, dynamics
 from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk, geom_poses
-from mujoco_rl_ur5_tpu_torch.scene.compile import _mat2quat, compile_file
+from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
+from mujoco_rl_ur5_tpu_torch.scene.mesh import _mat2quat
 from mujoco_rl_ur5_tpu_torch.scene.mjcf import GEOM_BOX
 from mujoco_rl_ur5_tpu_torch.scene.model import ARRAY_FIELDS, State
 

@@ -9,13 +9,17 @@ falls back to the CPU when CUDA is asked for.
 * ``GraspMPC`` asked for ``cuda`` where there is none raises.
 * ``plan_from_arrays`` carries the JAX package's chain plan across: the port
   computes the same rollout on it as on the plan it loads itself.
-* The four narrowphase kernels (csrc/collide_*.cu) compile on the host with
+* The six narrowphase kernels (csrc/collide_*.cu) compile on the host with
   g++ through a shim header that stands in for the CUDA runtime and
   defines the kernels' launch (``COLLIDE_LAUNCH``) as loops over blocks
-  and threads; called
-  through their C entry points on CPU tensors, they give their plain
-  versions' outputs to the bit (both round every product and sum in the
-  same order; the host build, like nvcc's, does not contract them).
+  and threads; called through their C entry points on CPU tensors, with
+  hull tables of 34 faces (the finger pad's hull beside a cylinder's
+  prism), they give their plain versions' outputs to the bit (both round
+  every product and sum in the same order; the host build, like nvcc's,
+  does not contract them). The ray cast (csrc/raycast.cu, launched by
+  ``RAYCAST_LAUNCH`` over a grid of pixel blocks by frames) does the same
+  on three 24 x 20 frames of the object pile: s*, geom id and normal equal
+  to render/raycast.py's plain cast to the bit.
 """
 
 import ctypes
@@ -32,6 +36,7 @@ import pytest
 import torch
 
 import mujoco_rl_ur5_tpu_torch as port
+from mujoco_rl_ur5_tpu_torch import OBJECTS
 from mujoco_rl_ur5_tpu.physics.chain import make_chain_plan as jax_make_plan
 from mujoco_rl_ur5_tpu.physics.pallas_chain import (
     make_knot_step as jax_knot_step,
@@ -62,7 +67,8 @@ def test_every_port_module_imports_without_jax():
               "physics.chain", "physics.cuda_chain", "ops.blockchol",
               "ops.spatial", "ops.consts", "physics.kinematics",
               "physics.dynamics", "physics.collision",
-              "physics.cuda_collide", "physics.constraints"):
+              "physics.cuda_collide", "physics.constraints", "scene.mesh",
+              "render.camera", "render.raycast", "render.cuda_raycast"):
         assert "mujoco_rl_ur5_tpu_torch." + m in mods
     code = (
         "import sys\n"
@@ -251,20 +257,31 @@ static inline int cudaGetLastError() { return 0; }
       for (threadIdx.x = 0; threadIdx.x < blockDim.x; ++threadIdx.x) \\
         kernel(__VA_ARGS__);                                         \\
   } while (0)
+#define RAYCAST_LAUNCH(kernel, gx, gy, stream, ...)                  \\
+  do {                                                               \\
+    gridDim.x = (gx);                                                \\
+    gridDim.y = (gy);                                                \\
+    blockDim.x = RAYCAST_THREADS;                                    \\
+    for (blockIdx.y = 0; blockIdx.y < gridDim.y; ++blockIdx.y)       \\
+      for (blockIdx.x = 0; blockIdx.x < gridDim.x; ++blockIdx.x)     \\
+        for (threadIdx.x = 0; threadIdx.x < blockDim.x;              \\
+             ++threadIdx.x)                                          \\
+          kernel(__VA_ARGS__);                                       \\
+  } while (0)
 """
 
 
-def _host_build(kernel, d):
-    src = cuda_collide.source(kernel)
+def _host_build(src, d):
     (d / "cuda_runtime.h").write_text(_SHIM)
     for name, text in src.headers.items():
         (d / name).write_text(text)
-    (d / f"{kernel}.cpp").write_text(src.text)
-    so = d / f"{kernel}.so"
+    (d / f"{src.name}.cpp").write_text(src.text)
+    so = d / f"{src.name}.so"
     subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
                     "-shared", "-fPIC", "-I",
                     os.fspath(d), "-o", os.fspath(so),
-                    os.fspath(d / f"{kernel}.cpp")], check=True, timeout=120)
+                    os.fspath(d / f"{src.name}.cpp")], check=True,
+                   timeout=120)
     fn = getattr(ctypes.CDLL(os.fspath(so)), src.entry)
     fn.argtypes, fn.restype = list(src.argtypes), ctypes.c_int
     return fn
@@ -274,7 +291,7 @@ def _host_build(kernel, d):
 def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
     if shutil.which("g++") is None:
         pytest.fail("g++ is needed to compile the kernel sources on the host")
-    fn = _host_build(kernel, tmp_path)
+    fn = _host_build(cuda_collide.source(kernel), tmp_path)
     rng = np.random.default_rng(7)
     B, n, G = 3, 5, 10
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
@@ -282,20 +299,32 @@ def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
     q = rng.normal(size=(B, G, 4))
     quat = t(q / np.linalg.norm(q, axis=-1, keepdims=True))
     size = t(rng.uniform(0.03, 0.1, (G, 3)))
+    # a cylinder's prism (32 vertices, 18 faces) and the finger pad's hull
+    # scaled up (24 vertices, 34 faces), padded to 32 x 34 as a model pads
     from mujoco_rl_ur5_tpu_torch.scene.compile import _cylinder_prism_hull
-    h = [_cylinder_prism_hull(0.03, 0.05), _cylinder_prism_hull(0.05, 0.02)]
-    hulls = cuda_collide.Hulls(
-        torch.arange(G) % 2, t([x.hull_verts for x in h]),
-        t(np.ones((2, 32))), t([x.hull_fnorm for x in h]),
-        t([x.hull_fdist for x in h]))
+    from mujoco_rl_ur5_tpu_torch.scene.mesh import process_mesh
+    pad = process_mesh("pad", os.path.join(os.path.dirname(OBJECTS),
+                                           "finger_pad.stl"),
+                       np.full(3, 2e-3))
+    h = [_cylinder_prism_hull(0.03, 0.05), pad]
+    V, F = 32, 34
+    verts, vmask = np.zeros((2, V, 3)), np.zeros((2, V))
+    fnorm, fdist = np.zeros((2, F, 3)), np.full((2, F), 1e10)
+    for i, x in enumerate(h):
+        nv, nf = len(x.hull_verts), len(x.hull_fnorm)
+        verts[i, :nv], vmask[i, :nv] = x.hull_verts, 1.0
+        fnorm[i, :nf], fdist[i, :nf] = x.hull_fnorm, x.hull_fdist
+    assert len(pad.hull_fnorm) == 34 and len(pad.hull_verts) == 24
+    hulls = cuda_collide.Hulls(torch.arange(G) % 2, t(verts), t(vmask),
+                               t(fnorm), t(fdist))
     g1 = torch.from_numpy(rng.integers(0, G // 2, (B, n)))
     g2 = torch.from_numpy(rng.integers(G // 2, G, (B, n)))
-    K = 9 if kernel == "box_box" else 8
+    K = {"box_box": 9, "sphere_hull": 1, "capsule_hull": 5}.get(kernel, 8)
     outs = [torch.empty(B, n, K, 3), torch.empty(B, n, K, 3),
             torch.empty(B, n, K)]
     keep = [pos, quat, size, hulls.meshid.to(torch.int32), *hulls[1:],
             g1.to(torch.int32), g2.to(torch.int32), *outs]
-    assert fn(*(x.data_ptr() for x in keep), B, n, G, 32, 18, None) == 0
+    assert fn(*(x.data_ptr() for x in keep), B, n, G, V, F, None) == 0
     want = getattr(cuda_collide, f"{kernel}_batched").plain(
         pos, quat, size, hulls, g1, g2)
     act = want[2] < 1.0
@@ -303,3 +332,40 @@ def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
     for got, ref in zip(outs, want):
         np.testing.assert_array_equal(got[act].numpy(), ref[act].numpy())
     assert bool((outs[2][~act] >= 1.0).all())
+
+
+def test_raycast_kernel_source_runs_on_the_host(tmp_path):
+    if shutil.which("g++") is None:
+        pytest.fail("g++ is needed to compile the kernel sources on the host")
+    from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
+    from mujoco_rl_ur5_tpu_torch.render import cuda_raycast, raycast
+    from mujoco_rl_ur5_tpu_torch.render.camera import make_camera
+    from mujoco_rl_ur5_tpu_torch.scene.compile import load_model
+    from mujoco_rl_ur5_tpu_torch.scene.mjcf import JNT_FREE
+    fn = _host_build(cuda_raycast.SOURCE, tmp_path)
+    m = load_model(OBJECTS, device="cpu")
+    t = m.topo
+    rng = np.random.default_rng(4)
+    B = 3
+    q = np.tile(m.qpos0.numpy().astype(np.float64), (B, 1))
+    q[:, :6] = [-1.42, -1.08, 0.348, -1.739, 3.142, 0.671]  # pads over the bin
+    for j in np.nonzero(t.jnt_type == JNT_FREE)[0]:
+        qa = t.jnt_qposadr[j]
+        quat = rng.normal(size=(B, 4))
+        q[:, qa + 3: qa + 7] = quat / np.linalg.norm(quat, axis=1,
+                                                     keepdims=True)
+    cam = make_camera(m, "top_down", 24, 20)
+    dirs = cam.dirs
+    par, code, faces = raycast.geom_table(
+        m, fk(m, torch.from_numpy(q.astype(np.float32))), cam,
+        hidden_geoms=(t.geom_id("object_3_geom"),))
+    N, G, F = dirs.shape[0], par.shape[1], faces.shape[1]
+    outs = [torch.empty(B, N), torch.empty(B, N, dtype=torch.int32),
+            torch.empty(B, N, 3)]
+    keep = [par, code.to(torch.int32).contiguous(), faces, dirs, *outs]
+    assert fn(*(x.data_ptr() for x in keep), B, N, G, F, None) == 0
+    want = cuda_raycast.cast_rays.plain(par, code, faces, dirs)
+    wins = code[want[1].long(), 0][want[0] < 1e9]
+    assert set(wins.tolist()) == set(range(6))             # every branch
+    for got, ref in zip(outs, want):
+        assert torch.equal(got, ref)

@@ -26,9 +26,8 @@ from mujoco_rl_ur5_tpu_torch import ASSET
 from mujoco_rl_ur5_tpu_torch.carry import PLAN_FIELDS
 from mujoco_rl_ur5_tpu_torch.mpc.grasp_mpc import GraspMPC
 from mujoco_rl_ur5_tpu_torch.physics.chain import make_chain_plan
-from mujoco_rl_ur5_tpu_torch.scene.compile import (
-    load_model, principal_inertia,
-)
+from mujoco_rl_ur5_tpu_torch.scene.compile import load_model
+from mujoco_rl_ur5_tpu_torch.scene.mesh import principal_inertia
 from mujoco_rl_ur5_tpu_torch.scene.mjcf import parse_mjcf
 from mujoco_rl_ur5_tpu_torch.scene.reduce import (
     drop_free_bodies, load_arm_model,
@@ -127,8 +126,8 @@ def test_principal_inertia_matches_jax():
     for _ in range(5):
         W = rng.standard_normal((3, 3))
         inertia = W @ W.T + 0.1 * np.eye(3)
-        d, q = principal_inertia(inertia)
-        jd, jq = jax_principal_inertia(1.0, inertia)   # unit mass
+        d, q = principal_inertia(1.0, inertia)           # unit mass
+        jd, jq = jax_principal_inertia(1.0, inertia)
         np.testing.assert_allclose(d, jd, rtol=1e-12)
         # the same rotation (a quaternion is defined up to sign)
         assert min(np.abs(q - jq).max(), np.abs(q + jq).max()) < 1e-9
@@ -144,13 +143,15 @@ def test_drop_free_bodies_keeps_the_arm():
 
 
 def test_inertia_from_geoms_raises(tmp_path):
-    """Inertia from a mesh geom needs scene/mesh.py, not ported yet (the
-    primitive types' mass properties are: tests/test_torch_contact_scene)."""
+    """Inertia from a mesh geom needs its mesh file: a mesh geom whose mesh
+    no asset declares raises (meshes that are declared compile:
+    tests/test_torch_objects_scene.py; the primitive types' mass
+    properties: tests/test_torch_contact_scene.py)."""
     xml = tmp_path / "geom_inertia.xml"
     xml.write_text(
         '<mujoco><worldbody><body name="b"><joint name="j"/>'
         '<geom type="mesh" mesh="m"/></body></worldbody></mujoco>')
-    with pytest.raises(ValueError, match="inertiafromgeom"):
+    with pytest.raises(ValueError, match="mesh 'm'"):
         load_model(os.fspath(xml), device="cpu")
 
 
