@@ -8,16 +8,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the thirteen build units from csrc/, six of the batched solves
      (five kernels; rollout_closed once with the track costs and once with
-     the reach costs), the six collide kernels and the ray cast, one nvcc
-     per source, in parallel, with the build time and ptxas's register and
-     spill report;
+     the reach costs), the six collide kernels and the ray cast, one
+     nvcc per source, in parallel, with the build time and ptxas's register
+     and spill report (lqr_backward must spill nothing), and the resident
+     blocks per SM, threads and shared memory per block of the two
+     redesigned kernels (lqr_backward, rollout_closed);
   3. kernels: each kernel's wrapper at the shapes the main paths give it
      (B=4096, H=64, substeps=8), held against its plain PyTorch version on
      the same inputs on the card, output by output, with the tolerance
      stated; each timed with CUDA events beside the plain version and its
      bound. rollout_closed is held with both fused costs, and its costs also
      against the plain cost of the candidates it returned; ee_quad_gn's
-     assembly into the full stage Hessians is timed beside it;
+     assembly into the full stage Hessians is timed beside it. The two
+     redesigned kernels are also held at a ragged batch (B=509; H=8 for
+     rollout_closed, whose plain version is launch-bound), called twice on
+     the same inputs (equal to the bit), timed on the device under
+     torch.profiler and printed beside their earlier times;
   4. main paths at B=4096, H=64, substeps=8, iters=6, each with every launch
      counter set to 0 just before and read just after:
      reach, GraspMPC.solve_batch_x on seeded world targets (rollout_open 1,
@@ -80,6 +86,10 @@ Each phase's wall time and the whole run's are printed as it ends.
 
     python3 chip_smoke.py --dump-settle PATH   also writes the settle roll's
                                                fastest scenarios to PATH
+    python3 chip_smoke.py --solve-times ROOT   only times phase 4's solves with
+                                               the package of the checkout at
+                                               ROOT (to compare two trees in
+                                               one call: old, new, new, old)
 
 The last three lines are the kernel table as JSON (twelve kernels), the
 card's name and power limit, and the device line as JSON.
@@ -167,8 +177,10 @@ def check(name: str, err: float, tol: float, what: str) -> None:
 
 
 def backward_flops(nx: int, nu: int) -> int:
-    """Floating-point operations of one Riccati step of csrc/lqr_backward.cu
-    (an FMA counts 2), from its loops."""
+    """Floating-point operations one Riccati step needs (an FMA counts 2):
+    the products and the one 7 x 7 factorization of the plain recursion.
+    csrc/lqr_backward.cu executes a little more (each of a scenario's 16
+    lanes factors Quu and solves for d itself)."""
     fma = (nx * nu * nx                        # SL = S L
            + nu * nx + nx * nx                 # Qu, Qx
            + nu * (nu + 1) // 2 * nx           # Quu (upper triangle)
@@ -183,6 +195,36 @@ def backward_flops(nx: int, nu: int) -> int:
              + (nx + 1) * 4 * nu               # solve: sub and mul per row
              + nx * (nx + 1) // 2 * 3)         # S: X add, half-sum
     return 2 * fma + other
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Device time per launch of the kernel named ``kernel`` over ``reps``
+    calls of ``fn`` under torch.profiler (None where the profiler recorded
+    none of its launches: "not measured")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key
+          and e.self_device_time_total]
+    if not ev:
+        return None
+    return (sum(e.self_device_time_total for e in ev)
+            / sum(e.count for e in ev) / 1e3)
+
+
+def spill_bytes(report: list) -> int:
+    """Spill stores plus loads in a ptxas report (``_build.ptxas_report``)."""
+    import re
+    return sum(int(a) + int(b) for ln in report for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln))
 
 
 def timed_ms(fn, reps: int = 3) -> float:
@@ -1065,12 +1107,92 @@ def observation(log, model, state) -> dict:
     return row
 
 
+def timed_solves(mpc, xr0, targets, x0, q_refs, first=None) -> dict:
+    """Phase 4's solves at the shapes of ``mpc`` (B=4096, H=64, substeps=8,
+    iters=6): the cold reach solve (solve_batch_x), its warm 2-iteration
+    re-solve, the cold track solve (track_batch) and its warm re-solve,
+    each warm one from its cold solve's controls shifted by a knot. Each
+    runs once through ``first(what, solve, launches)``, which returns the
+    result and the call's wall seconds (phase 4 counts the launches and
+    checks the result there; by default it only times the call), then is
+    timed (median of 3 synchronised calls), and each cold one once more
+    under torch.profiler. Returns {what: ms per call}."""
+    from mujoco_rl_ur5_tpu_torch import ASSET
+    from mujoco_rl_ur5_tpu_torch.mpc.cuda_ilqr import ilqr_chain_batch
+
+    def once(what, solve, launches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    first = first or once
+    reach_cost, reach_quad, reach_term_quad, reach_kc = \
+        mpc._reach_closures(targets)
+    warm_mpc = type(mpc).from_scene(ASSET, horizon=H, substeps=SUBSTEPS,
+                                    iters=2, device="cuda")
+    cold = (1, ITERS + 1, ITERS, ITERS + 1)
+    out = {}
+
+    def run(what, solve, launches, cold_solve=False):
+        res, first_s = first(what, solve, launches)
+        out[what] = timed_ms(solve)
+        log(f"  {what}: {out[what]:.1f} ms per call of {B} (first call "
+            f"{first_s * 1e3:.1f} ms), {B / out[what] * 1e3:.1f} solves/s")
+        if cold_solve:
+            profile_solve(solve)
+        return torch.cat([res.us[:, 1:], res.us[:, -1:]], 1).contiguous()
+
+    u_warm = run("cold reach solve", lambda: mpc.solve_batch_x(xr0, targets),
+                 cold + (ITERS + 1,), True)
+    run("warm reach re-solve", lambda: ilqr_chain_batch(
+        mpc.plan, SUBSTEPS, reach_cost, reach_quad, reach_term_quad, xr0,
+        u_warm, reach_kc, iters=2), (1, 3, 2, 3, 3))
+    u_track = run("cold track solve", lambda: mpc.track_batch(x0, q_refs),
+                  cold + (0,), True)
+    run("warm track re-solve",
+        lambda: warm_mpc.track_batch(x0, q_refs, u_init=u_track),
+        (1, 3, 2, 3, 0))
+    return out
+
+
+def solve_times(root: str) -> int:
+    """--solve-times: phase 4's timed solves (timed_solves) with the package
+    of the checkout at ``root``."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import mujoco_rl_ur5_tpu_torch as port
+    if os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))) != root:
+        raise RuntimeError(f"imported {port.__file__}, not the package at "
+                           f"{root}")
+    from mujoco_rl_ur5_tpu_torch import ASSET
+    from mujoco_rl_ur5_tpu_torch.mpc.grasp_mpc import GraspMPC
+
+    dev = torch.device("cuda")
+    mpc = GraspMPC.from_scene(ASSET, horizon=H, substeps=SUBSTEPS,
+                              iters=ITERS, device="cuda")
+    log(f"solve times of {root}: built in {mpc.build_kernels():.1f} s")
+    xr0, targets = (torch.from_numpy(a).to(dev)
+                    for a in reach_problem(B, seed=2))
+    x0, q_refs = (torch.from_numpy(a).to(dev)
+                  for a in tracking_problem(B, H, seed=0))
+    out = timed_solves(mpc, xr0, targets, x0, q_refs)
+    log(f"solve times of {root} (ms per call of {B}, median of 3): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
+    return 0
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dump-settle", metavar="PATH", help="also write the "
                     "settle roll's four fastest scenarios (snapshots every 50 "
                     "steps, object speeds per step) to PATH (.npz)")
+    ap.add_argument("--solve-times", metavar="ROOT", help="only time phase "
+                    "4's cold and warm solves with the package of the "
+                    "checkout at ROOT (for example an earlier tree unpacked "
+                    "under build/), and exit")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1078,12 +1200,12 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if opts.solve_times:
+        return solve_times(opts.solve_times)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mujoco_rl_ur5_tpu_torch import ASSET, _build
     from mujoco_rl_ur5_tpu_torch.mpc import cuda_lqr
-    from mujoco_rl_ur5_tpu_torch.mpc.cuda_ilqr import (
-        ALPHAS, REG, ilqr_chain_batch,
-    )
+    from mujoco_rl_ur5_tpu_torch.mpc.cuda_ilqr import ALPHAS, REG
     from mujoco_rl_ur5_tpu_torch.mpc.grasp_mpc import (
         EE_OFFSET, GraspMPC, MPCWeights,
     )
@@ -1120,6 +1242,19 @@ def main() -> int:
     for i, src in enumerate(srcs):
         for line in _build.ptxas_report(src):
             log(f"  ptxas {src.name}{variants.get(i, '')}: {line}")
+    # the two redesigned kernels: resident blocks per SM (the card's
+    # occupancy calculator), threads and shared memory per block
+    for i, src in enumerate(srcs):
+        if src.name not in ("lqr_backward", "chain_rollout_closed"):
+            continue
+        args = () if src.name == "lqr_backward" else (len(ALPHAS),)
+        blocks, threads, smem = _build.occupancy(src, *args)
+        log(f"  occupancy {src.name}{variants.get(i, '')}: {blocks} resident "
+            f"blocks of {threads} threads per SM, {smem} bytes of dynamic "
+            f"shared memory per block")
+    spills = spill_bytes(_build.ptxas_report(cuda_lqr.SOURCE))
+    if spills:
+        raise AssertionError(f"lqr_backward spills {spills} bytes")
     stamp("phases 1-2")
 
     plan, nx, nu, nq, w = mpc.plan, mpc.nx, mpc.nu, mpc.nq, mpc.w
@@ -1136,8 +1271,7 @@ def main() -> int:
     xr0 = torch.from_numpy(xr_np).to(dev)
     targets = torch.from_numpy(tg_np).to(dev)
     ur_hold = mpc._hold_init(xr0)
-    reach_cost, reach_quad, reach_term_quad, reach_kc = \
-        mpc._reach_closures(targets)
+    reach_cost, reach_quad, reach_term_quad, _ = mpc._reach_closures(targets)
     sub_ops = cc.substep_header(plan).ops["substep"]
     track_ops = cc.cost_header(mpc._k_track, plan.nv, nu, nx, nx).ops
     reach_ops = cc.cost_header(mpc._k_reach, plan.nv, nu, 0, 3).ops
@@ -1147,7 +1281,8 @@ def main() -> int:
     A = len(ALPHAS)
     table = {}
 
-    def record(name, source, replaces, err, ms, plain_ms, ops, nbyte):
+    def record(name, source, replaces, err, ms, plain_ms, ops, nbyte,
+               dev_ms=None, earlier=""):
         t_bytes = nbyte / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
         table[name] = {
@@ -1156,9 +1291,24 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
-        log(f"  {name}: {ms:.3f} ms on the card, plain {plain_ms:.1f} ms, "
-            f"bound {max(t_bytes, t_ops):.4f} ms "
-            f"({ops:.3e} ops, {nbyte:.3e} bytes)")
+        dev = ""
+        if dev_ms is not None or earlier:
+            table[name]["device_ms"] = dev_ms
+            dev = (" (device " + ("not measured" if dev_ms is None
+                                  else f"{dev_ms:.3f} ms") + ")")
+        log(f"  {name}: {ms:.3f} ms on the card{dev}, plain {plain_ms:.1f} "
+            f"ms, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({ops:.3e} ops, {nbyte:.3e} bytes){earlier}")
+
+    def repeats(name, fn, first):
+        """The kernel gives the same outputs to the bit when called again on
+        the same inputs."""
+        again = fn()
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        log(f"  {name}: a second call on the same inputs gives the same "
+            f"outputs to the bit: {same}")
+        if not same:
+            raise AssertionError(f"{name} does not repeat to the bit")
 
     # 3. kernels against their plain versions, at the main paths' shapes.
     # The card contracts multiply-adds and has its own sinf/cosf, so a kernel
@@ -1221,18 +1371,27 @@ def main() -> int:
     X, q, U, r = mpc._track_quad(xk, uk, refs)
     XH, qH = mpc._track_term_quad(xs[:, -1], term_ref)
     reg = torch.full((B,), REG, device=dev)
-    bargs = (F, L, X, q, U, r, XH, qH, reg)
+    # at full size and contiguous, as the solver hands them over
+    bargs = tuple(t.contiguous() for t in (F, L, X, q, U, r, XH, qH)) + (reg,)
     g = cuda_lqr.backward(*bargs)
     diff, plain_ms = compare(
         "backward", ("K", "d", "S", "s"), g,
         lambda *a: cuda_lqr.backward_plain(*(a or bargs)),
         f64(*bargs))
+    repeats("backward", lambda: cuda_lqr.backward(*bargs), g)
+    # a ragged batch (509: no multiple of the 8 scenarios of a block)
+    rb = tuple(t[:509].contiguous() for t in bargs)
+    compare("backward (B=509)", ("K", "d", "S", "s"), cuda_lqr.backward(*rb),
+            lambda *a: cuda_lqr.backward_plain(*(a or rb)), f64(*rb))
+    del rb
     record("backward", "mujoco_rl_ur5_tpu_torch/csrc/lqr_backward.cu",
            "mujoco_rl_ur5_tpu/mpc/pallas_lqr.py:90", diff,
            event_ms(lambda: cuda_lqr.backward(*bargs), 10), plain_ms,
-           B * H * backward_flops(nx, nu),
-           nbytes(F, L, q, r, XH, qH, reg, *g)
-           + B * H * (nx * nx + nu * nu) * 4)      # X and U at full size
+           B * H * backward_flops(nx, nu), nbytes(*bargs, *g),
+           device_ms(lambda: cuda_lqr.backward(*bargs),
+                     "riccati_backward_kernel"),
+           "; the one-thread-per-scenario kernel before it: 10.380 ms per "
+           "call (device 8.51)")
 
     law_ops = nu * (2 + 3 * nx) + 2 * nu
 
@@ -1248,7 +1407,10 @@ def main() -> int:
         ckw64 = dict(cost=cost, sref=None if s_ref is None else s_ref.double(),
                      tref=t_ref.double())
         cargs = (x_0, xbar, ubar, gains.K, gains.d)
-        out = cc.rollout_closed(plan, SUBSTEPS, *cargs, ALPHAS, **ckw)
+
+        def run():
+            return cc.rollout_closed(plan, SUBSTEPS, *cargs, ALPHAS, **ckw)
+        out = run()
         diff, plain_ms = compare(
             name, ("xs", "us", "costs"), out,
             lambda *a: (cc.rollout_closed_plain(plan, SUBSTEPS, *a, ALPHAS,
@@ -1260,23 +1422,41 @@ def main() -> int:
                             for a in range(A)], 1)
         check(f"{name} costs", float(((out[2] - want) / want).abs().max()),
               2e-5, "max relative error vs the plain cost of its own xs, us")
-        ms = event_ms(lambda: cc.rollout_closed(plan, SUBSTEPS, *cargs, ALPHAS,
-                                                **ckw), 5)
+        repeats(name, run, out)
+        # a ragged batch (509: 15 blocks of 32 scenarios and one of 29) over
+        # the first 8 knots
+        rargs = (x_0[:509].contiguous(), xbar[:509, :Hr + 1].contiguous(),
+                 *(t[:509, :Hr].contiguous()
+                   for t in (ubar, gains.K, gains.d)))
+        rkw = dict(cost=cost, tref=t_ref[:509].contiguous(),
+                   sref=None if s_ref is None
+                   else s_ref[:509, :Hr].contiguous())
+        rkw64 = dict(cost=cost, tref=rkw["tref"].double(),
+                     sref=None if s_ref is None else rkw["sref"].double())
+        compare(f"{name} (B=509, H={Hr})", ("xs", "us", "costs"),
+                cc.rollout_closed(plan, SUBSTEPS, *rargs, ALPHAS, **rkw),
+                lambda *a: cc.rollout_closed_plain(
+                    plan, SUBSTEPS, *(a or rargs), ALPHAS,
+                    **(rkw64 if a else rkw)), f64(*rargs))
+        ms, dev_ms = event_ms(run, 5), device_ms(run, "rollout_closed_kernel")
         ops = A * B * (H * (SUBSTEPS * sub_ops + law_ops + cost_ops["stage"])
                        + cost_ops["term"])
         ins = [t for t in (x_0, xbar[:, :H], ubar, gains.K, gains.d, s_ref,
                            t_ref) if t is not None]
-        return diff, ms, plain_ms, ops, nbytes(*ins, *out)
+        return diff, ms, plain_ms, ops, nbytes(*ins, *out), dev_ms
 
-    diff, ms, plain_ms, ops, nbyte = closed(
+    Hr = 8
+    diff, ms, plain_ms, ops, nbyte, dev_ms = closed(
         "rollout_closed (track costs)", mpc._k_track,
         lambda xa, ua: (mpc._track_stage(xa[:, :-1], ua, refs).sum(-1)
                         + mpc._track_term(xa[:, -1], term_ref)),
         track_ops, x0, xs, u_hold, g, sref, tref)
-    log(f"  rollout_closed (track costs): {ms:.3f} ms on the card, plain "
-        f"{plain_ms:.1f} ms, bound "
+    log(f"  rollout_closed (track costs): {ms:.3f} ms on the card (device "
+        + ("not measured" if dev_ms is None else f"{dev_ms:.3f} ms")
+        + f"), plain {plain_ms:.1f} ms, bound "
         f"{max(ops / PEAK_F32_FLOP_PER_S, nbyte / PEAK_BYTES_PER_S) * 1e3:.4f}"
-        f" ms ({ops:.3e} ops, {nbyte:.3e} bytes)")
+        f" ms ({ops:.3e} ops, {nbyte:.3e} bytes); the batch-fastest kernel "
+        "before it: 3.413 ms per call (device 2.66)")
     del g, F, L, X, U, xk, xs
 
     # the reach path's two: ee_quad_gn, and rollout_closed with the reach
@@ -1302,15 +1482,18 @@ def main() -> int:
     F, L = cc.lin_fd_fast(plan, SUBSTEPS, xk, uk)
     X, q, U, r = reach_quad(xk, uk)
     XH, qH = reach_term_quad(xs[:, -1])
-    g = cuda_lqr.backward(F, L, X, q, U, r, XH, qH, reg)
+    g = cuda_lqr.backward(*(t.contiguous() for t in (F, L, X, q, U, r, XH,
+                                                     qH)), reg)
     del F, L, X, U
-    diff, ms, plain_ms, ops, nbyte = closed(
+    diff, ms, plain_ms, ops, nbyte, dev_ms = closed(
         "rollout_closed (reach costs)", mpc._k_reach, reach_cost, reach_ops,
         xr0, xs, ur_hold, g, None, targets)
     record("rollout_closed",
            "mujoco_rl_ur5_tpu_torch/csrc/chain_rollout_closed.cu",
            "mujoco_rl_ur5_tpu/physics/pallas_chain.py:579", diff, ms,
-           plain_ms, ops, nbyte)
+           plain_ms, ops, nbyte, dev_ms,
+           "; the batch-fastest kernel before it: 3.486 ms per call "
+           "(device 2.72)")
     del g, xk, xs
 
     # 4. the main paths at full width
@@ -1347,70 +1530,41 @@ def main() -> int:
         if not bool((cost <= c0).all()) or share < 0.99:
             raise AssertionError(f"{what} did not lower the cost")
 
-    def rates(what, solve, first_s=None):
-        ms = timed_ms(solve)
-        first = ("" if first_s is None
-                 else f" (first call {first_s * 1e3:.1f} ms)")
-        log(f"  {what}: {ms:.1f} ms per call of {B}{first}, "
-            f"{B / ms * 1e3:.1f} solves/s")
-
-    cold = (1, ITERS + 1, ITERS, ITERS + 1)
-    log(f"main path (reach): solve_batch_x B={B} H={H} substeps={SUBSTEPS} "
-        f"iters={ITERS}")
-    res, cold_s, n = counted("cold reach solve",
-                             lambda: mpc.solve_batch_x(xr0, targets),
-                             cold + (ITERS + 1,))
-    for name, c in zip(names, n):
-        table[name]["launches"] = c
     xs_hold = cc.rollout_open(plan, SUBSTEPS, xr0, ur_hold)
-    fell("reach", res.cost, reach_cost(xs_hold, ur_hold))
+    start = {"reach": reach_cost(xs_hold, ur_hold)}
 
     def ee_err(x):
         return float((mpc.ee_pos(x[:, -1, :nq]) - targets).norm(dim=-1)
                      .median())
 
-    log(f"  end-effector error at the last knot, median: gravity hold "
-        f"{ee_err(xs_hold):.4f} m -> solved {ee_err(res.xs):.4f} m")
-    del xs_hold
-    rates("cold reach solve", lambda: mpc.solve_batch_x(xr0, targets), cold_s)
-    profile_solve(lambda: mpc.solve_batch_x(xr0, targets))
-
-    def warm_reach(u):
-        return ilqr_chain_batch(plan, SUBSTEPS, reach_cost, reach_quad,
-                                reach_term_quad, xr0, u, reach_kc, iters=2)
-
-    u_warm = torch.cat([res.us[:, 1:], res.us[:, -1:]], 1).contiguous()
-    wres, _, _ = counted("warm 2-iteration reach re-solve",
-                         lambda: warm_reach(u_warm), (1, 3, 2, 3, 3))
-    rates("warm reach re-solve", lambda: warm_reach(u_warm))
-    log(f"  warm reach re-solve cost median {float(wres.cost.median()):.3f} "
-        f"vs cold {float(res.cost.median()):.3f}")
-    del res, wres
-
-    log(f"main path (track): track_batch B={B} H={H} substeps={SUBSTEPS} "
-        f"iters={ITERS}")
-    res, cold_s, _ = counted("cold track solve",
-                             lambda: mpc.track_batch(x0, q_refs), cold + (0,))
+    hold_err = ee_err(xs_hold)
     xs_hold = cc.rollout_open(plan, SUBSTEPS, x0, u_hold)
-    fell("track", res.cost,
-         mpc._track_stage(xs_hold[:, :-1], u_hold, refs).sum(-1)
-         + mpc._track_term(xs_hold[:, -1], term_ref))
+    start["track"] = (mpc._track_stage(xs_hold[:, :-1], u_hold, refs).sum(-1)
+                      + mpc._track_term(xs_hold[:, -1], term_ref))
     del xs_hold
-    rates("cold track solve", lambda: mpc.track_batch(x0, q_refs), cold_s)
-    profile_solve(lambda: mpc.track_batch(x0, q_refs))
+    cold_cost = {}
 
-    warm_mpc = GraspMPC.from_scene(ASSET, horizon=H, substeps=SUBSTEPS,
-                                   iters=2, device="cuda")
-    u_warm = torch.cat([res.us[:, 1:], res.us[:, -1:]], 1).contiguous()
-    wres, _, _ = counted(
-        "warm 2-iteration track re-solve",
-        lambda: warm_mpc.track_batch(x0, q_refs, u_init=u_warm),
-        (1, 3, 2, 3, 0))
-    rates("warm track re-solve",
-          lambda: warm_mpc.track_batch(x0, q_refs, u_init=u_warm))
-    log(f"  warm track re-solve cost median {float(wres.cost.median()):.3f} "
-        f"vs cold {float(res.cost.median()):.3f}")
-    del res, wres
+    def first(what, solve, launches):
+        """Phase 4's checks of each solve's first run."""
+        res, wall, n = counted(what, solve, launches)
+        path = what.split()[1]
+        if what.startswith("cold"):
+            if path == "reach":
+                for name, c in zip(names, n):
+                    table[name]["launches"] = c
+                log(f"  end-effector error at the last knot, median: "
+                    f"gravity hold {hold_err:.4f} m -> solved "
+                    f"{ee_err(res.xs):.4f} m")
+            fell(path, res.cost, start[path])
+            cold_cost[path] = float(res.cost.median())
+        else:
+            log(f"  {what} cost median {float(res.cost.median()):.3f} vs "
+                f"cold {cold_cost[path]:.3f}")
+        return res, wall
+
+    log(f"main paths (reach: solve_batch_x, track: track_batch) B={B} H={H} "
+        f"substeps={SUBSTEPS} iters={ITERS}")
+    timed_solves(mpc, xr0, targets, x0, q_refs, first)
 
     # 5. the whole paths through the kernels against the plain versions.
     # Both solvers linearize by forward differences in f32 (see lin_fd). At

@@ -122,6 +122,21 @@ def ptxas_report(src: KernelSource) -> list[str]:
                 if "Used" in ln or "spill" in ln]
 
 
+def occupancy(src: KernelSource, *args: int) -> tuple:
+    """(resident blocks per SM, threads per block, dynamic shared memory per
+    block in bytes) from the library's ``<entry>_occupancy`` function,
+    which the redesigned kernels export (``args``: its launch-shape
+    arguments after the output array)."""
+    lib = build_many([src])[0]
+    fn = getattr(lib, src.entry + "_occupancy")
+    out = (ctypes.c_int * 3)()
+    rc = fn(out, *[ctypes.c_int(a) for a in args])
+    if rc != 0:
+        raise RuntimeError(f"{src.name}: occupancy query failed: "
+                           f"cudaError {rc}")
+    return tuple(out)
+
+
 def call(src: KernelSource, *args) -> None:
     """Build if needed, launch through the C entry point, and raise if the
     launch was refused."""

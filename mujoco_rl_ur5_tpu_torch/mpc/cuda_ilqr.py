@@ -64,9 +64,13 @@ def ilqr_chain_batch(
         F, L = lin_fd_fast(plan, substeps, xs[:, :-1], us)
         X, q, U, r = quad(xs[:, :-1], us)
         XH, qH = term_quad(xs[:, -1])
-        return backward(F, L, X, q, U, r, XH, qH, rg)
+        # the kernel reads every block at full size, batch-first: the
+        # quadratizations' expanded constants are materialised here
+        return backward(*(t.contiguous() for t in (F, L, X, q, U, r, XH, qH)),
+                        rg)
 
-    us = u_init
+    # the kernels read the public layout as it is: contiguous, batch-first
+    x0, us = x0.contiguous(), u_init.contiguous()
     xs = rollout_open(plan, substeps, x0, us)
     cost = total_cost(xs, us)
     rg = torch.full((B,), REG, dtype=x0.dtype, device=x0.device)

@@ -13,7 +13,8 @@ Hopper:
   * **Generated substep.** ``make_substep`` writes FK, CRBA, RNE, the
     equality springs, the Jacobi-equilibrated unrolled Cholesky solve and
     semi-implicit Euler as straight-line code with the plan's constants
-    folded. ``substep_header`` emits it once as a ``__device__`` function
+    folded (each joint's cosine and sine from one ``sincosf``).
+    ``substep_header`` emits it once as a ``__device__`` function
     (``chain_substep.cuh``); ``cost_header`` does the same for the fused
     line-search costs (``chain_cost.cuh``).
   * **Kernels** (``csrc/chain_*.cu``, written by hand around those
@@ -137,6 +138,13 @@ def ssin(x):
     return math.sin(x) if _isf(x) else x.sin()
 
 
+def ssincos(x):
+    """(cos x, sin x); emitted C++ takes both from one sincosf call."""
+    if isinstance(x, Var):
+        return x.sincos()
+    return scos(x), ssin(x)
+
+
 def ssqrt(x):
     return math.sqrt(x) if _isf(x) else x.sqrt()
 
@@ -215,6 +223,13 @@ class Var:
     def sqrt(self): return self.em.value(f"sqrtf({self.name})")
     def rsqrt(self): return self.em.value(f"rsqrtf({self.name})")
 
+    def sincos(self):
+        n = f"t{len(self.em.lines)}"
+        self.em.lines.append(f"  float {n}c, {n}s; "
+                             f"sincosf({self.name}, &{n}s, &{n}c);")
+        self.em.ops += 2
+        return Var(self.em, n + "c"), Var(self.em, n + "s")
+
     def clamp_min(self, c):
         return self.em.value(f"fmaxf({self.name}, {_lit(c)})")
 
@@ -263,7 +278,7 @@ def make_fk(plan: ChainPlan):
             d = jnt_dof[i]
             if d >= 0:
                 th = ssub(q[d], jnt_ref[i])
-                cth, sth = scos(th), ssin(th)
+                cth, sth = ssincos(th)
                 ax = jnt_axis[i]
                 aa = [[_c(ax[a] * ax[b]) for b in range(3)]
                       for a in range(3)]
@@ -605,6 +620,7 @@ def ee_quad_header(plan: ChainPlan, *cfg) -> Generated:
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_NALPHA = 8          # alphas rollout_closed takes as launch arguments
 
 
 @functools.lru_cache(maxsize=None)
@@ -624,7 +640,8 @@ def _lin_src(plan: ChainPlan) -> _build.KernelSource:
 @functools.lru_cache(maxsize=None)
 def _closed_src(plan: ChainPlan, cost, R: int, RT: int) -> _build.KernelSource:
     return _build.KernelSource(
-        "chain_rollout_closed", "rollout_closed", (_P,) * 11 + (_I,) * 4 + (_P,),
+        "chain_rollout_closed", "rollout_closed",
+        (ctypes.c_float,) * _NALPHA + (_P,) * 10 + (_I,) * 4 + (_P,),
         {"chain_substep.cuh": substep_header(plan).text,
          "chain_cost.cuh": cost_header(cost, plan.nv, plan.nu, R, RT).text})
 
@@ -823,6 +840,44 @@ def rollout_closed_plain(plan: ChainPlan, substeps: int, x0, xbar, ubar, K,
     return xs, us, costs.t()
 
 
+def check_closed_inputs(plan: ChainPlan, x0, xbar, ubar, K, d, alphas,
+                        sref=None, tref=None) -> tuple:
+    """Raise unless the line search's inputs are what its kernel reads:
+    float32, contiguous, x0 (B, nx), xbar (B, H+1, nx), ubar (B, H, nu),
+    K (B, H, nu, nx), d (B, H, nu), sref (B, H, R) and tref (B, RT) or None,
+    16-byte aligned where it reads rows of 16 bytes, and 1 to 8 alphas.
+    Returns (B, H, A, R, RT)."""
+    nx, nu = 2 * plan.nv, plan.nu
+    B, H = ubar.shape[0], ubar.shape[1]
+    R = 0 if sref is None else sref.shape[-1]
+    RT = 0 if tref is None else tref.shape[-1]
+    want = {"x0": (x0, (B, nx)), "xbar": (xbar, (B, H + 1, nx)),
+            "ubar": (ubar, (B, H, nu)), "K": (K, (B, H, nu, nx)),
+            "d": (d, (B, H, nu))}
+    if sref is not None:
+        want["sref"] = (sref, (B, H, R))
+    if tref is not None:
+        want["tref"] = (tref, (B, RT))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"rollout_closed: {name} is {tuple(t.shape)}, "
+                             f"the kernel takes {shape}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"rollout_closed: {name} must be contiguous "
+                             f"float32, got {t.dtype} with strides "
+                             f"{t.stride()}")
+    for name in ("x0", "xbar", "K") + (("sref",) if R % 4 == 0 and R
+                                       else ()):
+        if want[name][0].data_ptr() % 16:
+            raise ValueError(f"rollout_closed: {name} is not 16-byte "
+                             "aligned")
+    A = len(alphas)
+    if not 1 <= A <= _NALPHA or B < 1 or H < 1:
+        raise ValueError(f"rollout_closed: B={B}, H={H} and {A} alphas "
+                         f"(the kernel takes 1 to {_NALPHA})")
+    return B, H, A, R, RT
+
+
 def rollout_closed(plan: ChainPlan, substeps: int, x0: torch.Tensor,
                    xbar: torch.Tensor, ubar: torch.Tensor, K: torch.Tensor,
                    d: torch.Tensor, alphas: tuple, cost=None,
@@ -835,30 +890,26 @@ def rollout_closed(plan: ChainPlan, substeps: int, x0: torch.Tensor,
     fuses the candidates' costs: stage_cb(q, v, u, sref_k, tref) and
     term_cb(q, v, tref) over entry lists, with per-knot references
     ``sref`` (B, H, R) and per-scenario ``tref`` (B, RT); the return is
-    then (xs, us, costs (B, A))."""
+    then (xs, us, costs (B, A)). On CUDA tensors every input must be
+    contiguous (``check_closed_inputs``)."""
     if not _route(x0, xbar, ubar, K, d):
         return rollout_closed_plain(plan, substeps, x0, xbar, ubar, K, d,
                                     alphas, cost, sref, tref)
-    nx, nu = 2 * plan.nv, plan.nu
-    B, H, A = ubar.shape[0], ubar.shape[1], len(alphas)
-    R = 0 if sref is None else sref.shape[-1]
-    RT = 0 if tref is None else tref.shape[-1]
+    B, H, A, R, RT = check_closed_inputs(plan, x0, xbar, ubar, K, d, alphas,
+                                         sref, tref)
     dev = x0.device
-    ins = [torch.tensor(alphas, dtype=torch.float32, device=dev),
-           _bfast(x0), _bfast(xbar[:, :H]), _bfast(ubar), _bfast(K),
-           _bfast(d)]
-    ins += [_bfast(sref) if R else None, _bfast(tref) if RT else None]
-    xs = torch.empty(A, H + 1, nx, B, device=dev)
-    us = torch.empty(A, H, nu, B, device=dev)
-    costs = torch.empty(A, B, device=dev)
-    ptrs = [0 if t is None else t.data_ptr() for t in ins + [xs, us, costs]]
-    _build.call(_closed_src(plan, cost, R, RT), *ptrs, B, H, A, substeps,
-                _stream(x0))
+    xs = torch.empty(B, A, H + 1, 2 * plan.nv, device=dev)
+    us = torch.empty(B, A, H, plan.nu, device=dev)
+    costs = torch.empty(B, A, device=dev)
+    ptrs = [0 if t is None else t.data_ptr()
+            for t in (x0, xbar, ubar, K, d, sref, tref, xs, us, costs)]
+    al = [float(a) for a in alphas] + [0.0] * (_NALPHA - A)
+    _build.call(_closed_src(plan, cost, R, RT), *al, *ptrs, B, H, A,
+                substeps, _stream(x0))
     rollout_closed.launches += 1
-    xs, us = _bslow(xs), _bslow(us)
     if cost is None:
         return xs, us
-    return xs, us, costs.t().contiguous()
+    return xs, us, costs
 
 
 rollout_closed.launches = 0
