@@ -11,27 +11,36 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the reach costs), the six collide kernels and the ray cast, one
      nvcc per source, in parallel, with the build time and ptxas's register
      and spill report (lqr_backward must spill nothing), and the resident
-     blocks per SM, threads and shared memory per block of the two
-     redesigned kernels (lqr_backward, rollout_closed);
+     blocks per SM, threads and shared memory per block of the four
+     redesigned kernels (lqr_backward, rollout_closed, lin_fd, the ray
+     cast at the object pile's table sizes);
   3. kernels: each kernel's wrapper at the shapes the main paths give it
      (B=4096, H=64, substeps=8), held against its plain PyTorch version on
      the same inputs on the card, output by output, with the tolerance
      stated; each timed with CUDA events beside the plain version and its
-     bound. rollout_closed is held with both fused costs, and its costs also
-     against the plain cost of the candidates it returned; ee_quad_gn's
-     assembly into the full stage Hessians is timed beside it. The two
-     redesigned kernels are also held at a ragged batch (B=509; H=8 for
-     rollout_closed, whose plain version is launch-bound), called twice on
-     the same inputs (equal to the bit), timed on the device under
-     torch.profiler and printed beside their earlier times;
+     bound. lin_fd is held as the solver calls it (lin_fd_fast: one launch
+     that differences one substep and composes the knot's Jacobians, from
+     the solver's strided view of its states), must launch nothing but its
+     kernel, and is timed beside the kernel without its composition and
+     the composition in torch after it; the full-knot differences (lin_fd)
+     are held over one substep and, at B=509, over eight. rollout_closed is
+     held with both fused costs, and its costs also against the plain cost
+     of the candidates it returned; ee_quad_gn's assembly into the full
+     stage Hessians is timed beside it. The redesigned kernels are also
+     held at a ragged batch (B=509; H=8 for rollout_closed, whose plain
+     version is launch-bound), called twice on the same inputs (equal to
+     the bit), timed on the device under torch.profiler and printed beside
+     their earlier times;
   4. main paths at B=4096, H=64, substeps=8, iters=6, each with every launch
      counter set to 0 just before and read just after:
      reach, GraspMPC.solve_batch_x on seeded world targets (rollout_open 1,
      lin_fd 7, rollout_closed 6, backward 7, ee_quad_gn 7 per cold solve):
      outputs finite, the cost rises in no scenario and falls in >= 99%, the
      end-effector error before and after; the solve's wall time and its
-     device time by kernel under torch.profiler; a warm 2-iteration re-solve
-     from the shifted plan (1 / 3 / 2 / 3 / 3);
+     device time by kernel under torch.profiler, where the solver's
+     lin_fd_fast calls must run no torch matrix product and launch no
+     cuBLAS gemm; a warm 2-iteration re-solve from the shifted plan
+     (1 / 3 / 2 / 3 / 3);
      track, GraspMPC.track_batch on a seeded joint-space problem (1 / 7 / 6
      / 7 / 0), the same checks and times, and its warm re-solve;
   5. whole paths: solve_batch_x and track_batch at B=256, H=8, iters=2
@@ -70,17 +79,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      iterations=30 against the CPU's plain path with phase 8's one-step
      limits, beside the CPU against itself one ulp off;
  10. the settled pile's RGB-D observation from the top_down camera at
-     200 x 200: the ray-cast kernel against its plain version on 16
-     frames (geom id, s* and normal on every pixel), a planted fault (one
-     visible geom hidden in the kernel's call only) that the geom check
-     must catch, render_rgbd timed at B=256 and B=4096 with its launch
-     count, its device time and the kernel's under torch.profiler and the
-     bound, the kernel held against its plain version again at each of
-     these batches (every frame of B=256, the last 16 frames of B=4096),
-     a render with the arm panned so that the finger pads hang over
-     the bin (every branch of the cast must win pixels), and a geometric
-     check of one frame: each hit pixel back-projects onto the surface of
-     the geom that won it, and the floor reads the camera's height.
+     200 x 200: the ray-cast kernel (a block per 16 x 16 tile, the geoms
+     culled per tile) against its plain version on 16 frames (geom id, s*
+     and normal on every pixel equal to the bit, and the kernel's survivor
+     lists equal to the plain cull's), a planted fault (one visible geom
+     hidden in the kernel's call only) that the geom check must catch,
+     render_rgbd timed at B=256 and B=4096 with its launch count, its
+     device time and the kernel's under torch.profiler, the kernel's time,
+     the survivors per tile and two bounds (the surviving (tile, geom)
+     pairs' work, and every visible geom on every ray), the kernel held
+     against its plain version to the bit again at each of these batches
+     (every frame of B=256, the last 16 frames of B=4096), a second
+     planted fault at B=256 (the bounding radii 5% small in the kernel's
+     call only) that the bit check must catch, a render with the arm
+     panned so that the finger pads hang over the bin (equal to the plain
+     cast to the bit; every branch of the cast must win pixels), and a
+     geometric check of one frame: each hit pixel back-projects onto the
+     surface of the geom that won it, and the floor reads the camera's
+     height.
 
 Each phase's wall time and the whole run's are printed as it ends.
 
@@ -220,6 +236,22 @@ def device_ms(fn, kernel: str, reps: int = 20):
             / sum(e.count for e in ev) / 1e3)
 
 
+def device_kernels(fn) -> dict:
+    """{kernel name: launches} on the card during one call of ``fn`` under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
 def spill_bytes(report: list) -> int:
     """Spill stores plus loads in a ptxas report (``_build.ptxas_report``)."""
     import re
@@ -246,25 +278,92 @@ def key_is_ours(key: str) -> bool:
         "riccati_backward_kernel", "ee_quad_gn_kernel"))
 
 
-def profile_solve(solve) -> None:
+LIN_SPAN = "chip_smoke: lin_fd_fast"
+MATMULS = ("aten::matmul", "aten::bmm", "aten::mm", "aten::baddbmm",
+           "aten::addmm")
+
+
+def check_lin_spans(prof) -> None:
+    """What the solver's lin_fd_fast calls (each inside a LIN_SPAN range)
+    ran: no torch matrix product on the host, and on the card, inside the
+    device range the profiler records for each span, only the lin_fd
+    kernel (no cuBLAS gemm). Fails otherwise."""
+    from torch.autograd import DeviceType
+
+    def inside(e):
+        while e is not None:
+            if e.name == LIN_SPAN:
+                return True
+            e = e.cpu_parent
+        return False
+
+    evs = prof.events()
+    host = [e for e in evs if e.device_type == DeviceType.CPU]
+    spans = sum(e.name == LIN_SPAN for e in host)
+    matmuls = sum(e.name in MATMULS for e in host if inside(e))
+    dev = [e for e in evs if e.device_type == DeviceType.CUDA]
+    windows = [e.time_range for e in dev if e.name == LIN_SPAN]
+    kernels = {}
+    for e in dev:
+        r = e.time_range
+        if e.name != LIN_SPAN and any(w.start <= r.start and r.end <= w.end
+                                      for w in windows):
+            kernels[e.name] = kernels.get(e.name, 0) + 1
+    gemm = sum(n for k, n in kernels.items() if "gemm" in k.lower())
+    ours = sum(n for k, n in kernels.items() if "lin_fd_kernel" in k)
+    solve_gemm = sum(e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA
+                     and "gemm" in e.key.lower())
+    log(f"  lin_fd_fast in this solve: {spans} calls, {matmuls} torch matrix "
+        f"products beneath them; on the card, within their {len(windows)} "
+        f"ranges, {ours} lin_fd launches and {gemm} cuBLAS gemm ("
+        + (", ".join(f"{k[:40]} x{n}" for k, n in kernels.items())
+           or "no kernel") + f"); the whole solve launched {solve_gemm} "
+        "gemm elsewhere")
+    if windows:
+        ok = len(windows) == spans and ours == spans == sum(kernels.values())
+    else:
+        log("  (the profiler recorded no device range for the spans: the "
+            "card side is not measured)")
+        ok = True
+    if spans != ITERS + 1 or matmuls or not ok:
+        raise AssertionError("lin_fd_fast ran more than its one kernel")
+
+
+def profile_solve(solve, lin_check=False) -> None:
     """Where a cold solve's time goes: device time by kernel name under
     torch.profiler, and the device's busy share of the solve's wall time
-    (the profiler's own host cost is inside that wall time)."""
+    (the profiler's own host cost is inside that wall time). With
+    ``lin_check``, the solver's lin_fd_fast runs inside a LIN_SPAN range
+    and ``check_lin_spans`` holds what it launched."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mujoco_rl_ur5_tpu_torch.mpc import cuda_ilqr
+    inner = cuda_ilqr.lin_fd_fast
+
+    def spanned(*args):
+        with record_function(LIN_SPAN):
+            return inner(*args)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solve()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    if lin_check:
+        cuda_ilqr.lin_fd_fast = spanned
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cuda_ilqr.lin_fd_fast = inner
     # device-side kernel events only: the ops that launch them carry the
     # same time again as their "self device time"
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total
+            and e.key != LIN_SPAN]    # the span's device range: no kernel
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
@@ -276,6 +375,8 @@ def profile_solve(solve) -> None:
     for ms, count, key in rows[:12] + [r for r in rows[12:]
                                        if key_is_ours(r[2])]:
         log(f"    {ms:9.3f} ms {count:5d}x  {key[:90]}")
+    if lin_check:
+        check_lin_spans(prof)
 
 
 def collide_flops(kernel: str, V: int, F: int) -> tuple:
@@ -928,13 +1029,11 @@ def observation(log, model, state) -> dict:
     cam = camera.make_camera(model, "top_down", IMAGE, IMAGE)
     dn = cam.dirs
     N = dn.shape[0]
+    cull = raycast.render_tables(model, cam).cull
+    T = cull.planes.shape[0]
     log(f"observation: top_down camera at {IMAGE} x {IMAGE}, near "
-        f"{cam.near:.5f} m, far {cam.far:.3f} m, {t.ngeom} geoms")
-
-    # 10a. the kernel against its plain version on 16 frames of the pile
-    par, code, faces = raycast.geom_table(model, fk(model, state.qpos[:16]),
-                                          cam)
-    got, want = cast(par, code, faces, dn), cast.plain(par, code, faces, dn)
+        f"{cam.near:.5f} m, far {cam.far:.3f} m, {t.ngeom} geoms, {T} tiles "
+        f"of {raycast.TILE} x {raycast.TILE} pixels")
 
     def compare(a, b):
         same = a[1] == b[1]
@@ -943,9 +1042,35 @@ def observation(log, model, state) -> dict:
         n_abs = float((a[2] - b[2]).abs().amax(-1)[same].max())
         return 1.0 - float(same.float().mean()), s_rel, n_abs
 
+    def bit_equal(what, got, want):
+        """s*, geom id and normal equal to the plain cast's to the bit."""
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        log(f"  {what}: s*, geom id and normal equal to the plain cast to "
+            f"the bit: {equal}")
+        if not equal:
+            raise AssertionError(f"{what}: the ray cast differs from its "
+                                 "plain version")
+
+    def changed(a, b):
+        """Pixels where any output of two casts differs."""
+        return int(((a[0] != b[0]) | (a[1] != b[1])
+                    | (a[2] != b[2]).any(-1)).sum())
+
+    # 10a. the kernel against its plain version on 16 frames of the pile,
+    # and its survivor lists against the plain cull's
+    par, code, faces = raycast.geom_table(model, fk(model, state.qpos[:16]),
+                                          cam)
+    got = cast(par, code, faces, dn, cull, survivors=True)
+    want = cast.plain(par, code, faces, dn)
+    bit_equal(f"ray cast vs plain, 16 frames x {N} pixels", got[:3], want)
+    lists = cuda_raycast.survivor_lists(
+        raycast.tile_survivors_plain(par, code, cull))
+    same_lists = all(torch.equal(a, b) for a, b in zip(got[3:], lists))
+    log(f"  the kernel's survivor lists equal the plain cull's: {same_lists}")
+    if not same_lists:
+        raise AssertionError("the kernel culls otherwise than its plain "
+                             "version")
     diff, s_rel, n_abs = compare(got, want)
-    log(f"  ray cast vs plain, 16 frames x {N} pixels: equal to the bit "
-        f"{all(torch.equal(a, b) for a, b in zip(got, want))}")
     check("raycast", diff, CAST_TOL["gid"], "share of pixels whose geom "
           "differs")
     check("raycast", s_rel, CAST_TOL["s"], "max |ds*| / s* where the geom "
@@ -957,7 +1082,7 @@ def observation(log, model, state) -> dict:
     planted = objs[int(wins[objs].argmax())]
     code_f = code.clone()
     code_f[planted, 0] = -1
-    fault = compare(cast(par, code_f, faces, dn), want)[0]
+    fault = compare(cast(par, code_f, faces, dn, cull), want)[0]
     log(f"  planted fault: geom {t.geom_names[planted]} ({int(wins[planted])}"
         f" pixels) hidden in the kernel's call only: {fault:.3e} of the "
         f"pixels change geom (limit {CAST_TOL['gid']:.0e}): "
@@ -968,16 +1093,36 @@ def observation(log, model, state) -> dict:
     del got, want
 
     # 10b. render_rgbd at bench_render's batch and over every scenario
-    def cost(Bt, code):
-        """Operations and bytes of one cast of Bt frames."""
-        vis = [(int(c), int(r)) for c, r in code.tolist() if c >= 0]
+    npix = torch.zeros(T, device=dn.device)
+    tx_n = -(-IMAGE // raycast.TILE)
+    for k in range(T):
+        ty, tx = divmod(k, tx_n)
+        npix[k] = ((min(IMAGE, (ty + 1) * raycast.TILE) - ty * raycast.TILE)
+                   * (min(IMAGE, (tx + 1) * raycast.TILE)
+                      - tx * raycast.TILE))
+
+    def geom_ops(code):
+        """f32 operations of one ray against each geom (0 if hidden)."""
         nface = (faces[:, :, 3] < 1e9).sum(-1).tolist()
-        per_ray = sum(RAY_OPS[c] if c < 5 else RAY_OPS_HULL
-                      + RAY_OPS_FACE * nface[r] for c, r in vis)
-        ops = Bt * N * (per_ray + RAY_OPS_PIXEL)
-        nbyte = (Bt * t.ngeom * 16 * 4 + code.numel() * 4
-                 + faces.numel() * 4 + N * 12 + Bt * N * 20)
-        return ops, nbyte
+        return torch.tensor([0 if c < 0 else RAY_OPS[c] if c < 5
+                             else RAY_OPS_HULL + RAY_OPS_FACE * nface[r]
+                             for c, r in code.tolist()],
+                            dtype=torch.float64, device=dn.device)
+
+    def cost(Bt, code, keep):
+        """Operations and bytes of one cast of Bt frames: every visible
+        geom on every ray, and (the bound) the surviving (tile, geom)
+        pairs' rays only; each with the winner's normal once per pixel."""
+        per = geom_ops(code)
+        full = Bt * N * (float(per.sum()) + RAY_OPS_PIXEL)
+        culled = (float((keep.double().sum(0) * per).sum(-1) @ npix.double())
+                  + Bt * N * RAY_OPS_PIXEL)
+        nbyte = (Bt * t.ngeom * 16 * 4 + code.numel() * 4 + faces.numel() * 4
+                 + N * 12 + T * 16 * 4 + t.ngeom * 4 + Bt * N * 20)
+        return full, culled, nbyte
+
+    def bound_ms(ops, nbyte):
+        return max(ops / PEAK_F32_FLOP_PER_S, nbyte / PEAK_BYTES_PER_S) * 1e3
 
     row = None
     for Bt in RENDER_FRAMES:
@@ -1003,13 +1148,26 @@ def observation(log, model, state) -> dict:
         dev_ms = sum(e.self_device_time_total for e in ev
                      if "raycast_kernel" in e.key) / 1e3
         tb = raycast.geom_table(model, kin, cam)
-        ops, nbyte = cost(Bt, tb[1])
-        bound = max(ops / PEAK_F32_FLOP_PER_S, nbyte / PEAK_BYTES_PER_S) * 1e3
+        keep = raycast.tile_survivors_plain(tb[0], tb[1], cull)
+        full, culled, nbyte = cost(Bt, tb[1], keep)
+        bound, bound_full = bound_ms(culled, nbyte), bound_ms(full, nbyte)
+        got = cast(*tb, dn, cull, survivors=True)
+        count = got[3]
+        if not torch.equal(count, keep.sum(-1, dtype=torch.int32)):
+            raise AssertionError(f"B={Bt}: the kernel's survivor counts "
+                                 "differ from the plain cull's")
+        got = got[:3]
+        ms = event_ms(lambda: cast(*tb, dn, cull), 10 if Bt <= 256 else 3)
         log(f"  render_rgbd B={Bt}: {wall:.2f} ms, {Bt / wall * 1e3:.0f} "
             f"frames/s ({IMAGE} x {IMAGE} RGB-D); ray-cast launches "
             f"{launches}; device {busy:.2f} ms ({busy / wall:.1%} of the "
-            f"wall time), the kernel {dev_ms:.3f} ms, bound {bound:.4f} ms "
-            f"({ops:.3e} ops, {nbyte:.3e} bytes)")
+            f"wall time), the kernel {dev_ms:.3f} ms")
+        log(f"  ray cast B={Bt}: {ms:.3f} ms (device {dev_ms:.3f} ms); "
+            f"survivors per tile mean {float(count.float().mean()):.2f}, "
+            f"largest {int(count.max())} of {int((tb[1][:, 0] >= 0).sum())} "
+            f"visible; bound {bound:.4f} ms ({culled:.3e} ops of the "
+            f"surviving pairs, {nbyte:.3e} bytes), every visible geom on "
+            f"every ray {bound_full:.4f} ms ({full:.3e} ops)")
         if Bt == RENDER_FRAMES[0]:
             # the camera's tables made anew in every call (as a fresh
             # camera would), against the kept ones timed above
@@ -1017,11 +1175,10 @@ def observation(log, model, state) -> dict:
                 model, kin, cam)), 10)
             log(f"  render_rgbd B={Bt} with the tables made in the call: "
                 f"{fresh:.2f} ms ({fresh - wall:+.2f} ms)")
+            cull = raycast.render_tables(model, cam).cull
         # the kernel at this batch against its plain version: every frame
         # at bench_render's batch, the last 16 frames over every scenario
-        got = cast(*tb, dn)
         if Bt == RENDER_FRAMES[0]:
-            ms = event_ms(lambda: cast(*tb, dn), 10)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             want = cast.plain(*tb, dn)
@@ -1033,10 +1190,7 @@ def observation(log, model, state) -> dict:
             want = cast.plain(tb[0][-16:], tb[1], tb[2], dn)
             held = f"frames {Bt - 16}-{Bt - 1}"
         diff, s_rel, n_abs = compare(got, want)
-        log(f"  ray cast vs plain at B={Bt}, {held}: geom differs on "
-            f"{diff:.3e} of the pixels, max |ds*| / s* {s_rel:.3e}, max "
-            f"|dnormal| {n_abs:.3e}; equal to the bit "
-            f"{all(torch.equal(a, b) for a, b in zip(got, want))}")
+        bit_equal(f"ray cast vs plain at B={Bt}, {held}", got, want)
         check("raycast", diff, CAST_TOL["gid"], f"B={Bt}: share of pixels "
               "whose geom differs")
         check("raycast", s_rel, CAST_TOL["s"], f"B={Bt}: max |ds*| / s* "
@@ -1044,31 +1198,49 @@ def observation(log, model, state) -> dict:
         check("raycast", n_abs, CAST_TOL["n"], f"B={Bt}: max |dnormal| where "
               "the geom agrees")
         max_err = max(max_err, s_rel, n_abs)
-        del got, want
         if Bt == RENDER_FRAMES[0]:
+            # a planted fault: the bounding radii 5% small (beyond the
+            # cull's 0.1% and 0.1 mm per m margins) in the kernel's call
+            # only; the bit check must see the geoms it wrongly drops
+            shrunk = cull._replace(radius=cull.radius * 0.95)
+            n_bad = changed(cast(*tb, dn, shrunk), want)
+            log(f"  planted fault: bounding radii 5% small in the kernel's "
+                f"call only: {n_bad} pixels of {Bt} frames change: "
+                f"{'caught' if n_bad else 'MISSED'}")
+            if not n_bad:
+                raise AssertionError("the bit check misses radii 5% small")
             row = {"name": "raycast", "route": "cuda",
                    "source": "mujoco_rl_ur5_tpu_torch/csrc/raycast.cu",
                    "replaces": "mujoco_rl_ur5_tpu/render/pallas_raycast.py:50",
                    "launches": None, "max_abs_err": max_err, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": ("operations" if ops / PEAK_F32_FLOP_PER_S
+                   "bound_by": ("operations" if culled / PEAK_F32_FLOP_PER_S
                                 >= nbyte / PEAK_BYTES_PER_S else "bytes"),
-                   "library_ms": None, "device_ms": dev_ms}
+                   "library_ms": None, "device_ms": dev_ms,
+                   "bound_every_geom_ms": bound_full}
             log(f"  ray cast alone B={Bt}: {ms:.3f} ms (device "
                 f"{dev_ms:.3f} ms), plain {plain_ms:.1f} ms, bound "
-                f"{bound:.4f} ms")
+                f"{bound:.4f} ms ({bound_full:.4f} ms with every geom on "
+                f"every ray); the design before this one (PERF.md): 4.349 ms "
+                f"(device 4.351)")
         else:
             row["launches"] = launches
-        del kin, rgb, dbuf, tb
+            row["B4096_ms"], row["B4096_device_ms"] = ms, dev_ms
+            log(f"  ray cast B={Bt}: the design before this one (PERF.md): "
+                f"device 69.0 ms")
+        del kin, rgb, dbuf, tb, keep, got, want
     row["max_abs_err"] = max_err
 
-    # 10c. the arm panned so that the pads hang over the bin
+    # 10c. the arm panned so that the pads hang over the bin: the hull
+    # branch runs under the cull
     qp = state.qpos[:16].clone()
     qp[:, :8] = torch.tensor(PADS_OVER_BIN, device=qp.device)
     kin = fk(model, qp)
     rgb, dbuf = raycast.render_rgbd(model, kin, cam)
     par, code, faces = raycast.geom_table(model, kin, cam)
-    s, gid, _ = cast(par, code, faces, dn)
+    s, gid, nrm = cast(par, code, faces, dn, cull)
+    bit_equal("panned arm, 16 frames", (s, gid, nrm),
+              cast.plain(par, code, faces, dn))
     hit = s < raycast.BIG / 2
     per = torch.bincount(code[gid.long(), 0][hit].long(), minlength=6)
     names = ("plane", "sphere", "box", "capsule", "cylinder", "hull")
@@ -1076,7 +1248,6 @@ def observation(log, model, state) -> dict:
         f"{k} {int(v)}" for k, v in zip(names, per)))
     if not bool((per > 0).all()):
         raise AssertionError("a branch of the ray cast wins no pixel")
-
     # 10d. geometry of frame 0: every hit pixel back-projects onto the
     # surface of the geom that won it; the floor reads the camera's height
     H = W = IMAGE
@@ -1107,7 +1278,8 @@ def observation(log, model, state) -> dict:
     return row
 
 
-def timed_solves(mpc, xr0, targets, x0, q_refs, first=None) -> dict:
+def timed_solves(mpc, xr0, targets, x0, q_refs, first=None,
+                 lin_check=False) -> dict:
     """Phase 4's solves at the shapes of ``mpc`` (B=4096, H=64, substeps=8,
     iters=6): the cold reach solve (solve_batch_x), its warm 2-iteration
     re-solve, the cold track solve (track_batch) and its warm re-solve,
@@ -1116,7 +1288,8 @@ def timed_solves(mpc, xr0, targets, x0, q_refs, first=None) -> dict:
     result and the call's wall seconds (phase 4 counts the launches and
     checks the result there; by default it only times the call), then is
     timed (median of 3 synchronised calls), and each cold one once more
-    under torch.profiler. Returns {what: ms per call}."""
+    under torch.profiler (with ``lin_check``, also holding what its
+    lin_fd_fast calls launched). Returns {what: ms per call}."""
     from mujoco_rl_ur5_tpu_torch import ASSET
     from mujoco_rl_ur5_tpu_torch.mpc.cuda_ilqr import ilqr_chain_batch
 
@@ -1141,7 +1314,7 @@ def timed_solves(mpc, xr0, targets, x0, q_refs, first=None) -> dict:
         log(f"  {what}: {out[what]:.1f} ms per call of {B} (first call "
             f"{first_s * 1e3:.1f} ms), {B / out[what] * 1e3:.1f} solves/s")
         if cold_solve:
-            profile_solve(solve)
+            profile_solve(solve, lin_check)
         return torch.cat([res.us[:, 1:], res.us[:, -1:]], 1).contiguous()
 
     u_warm = run("cold reach solve", lambda: mpc.solve_batch_x(xr0, targets),
@@ -1242,16 +1415,25 @@ def main() -> int:
     for i, src in enumerate(srcs):
         for line in _build.ptxas_report(src):
             log(f"  ptxas {src.name}{variants.get(i, '')}: {line}")
-    # the two redesigned kernels: resident blocks per SM (the card's
-    # occupancy calculator), threads and shared memory per block
+    # the four redesigned kernels: resident blocks per SM (the card's
+    # occupancy calculator), threads and shared memory per block (the ray
+    # cast's at the object pile's table sizes)
+    from mujoco_rl_ur5_tpu_torch import OBJECTS
+    from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
+    from mujoco_rl_ur5_tpu_torch.scene.mjcf import GEOM_MESH
+    host = compile_file(OBJECTS)
+    occ_args = {"lqr_backward": (), "chain_lin_fd": (),
+                "chain_rollout_closed": (len(ALPHAS),),
+                "raycast": (host.topo.ngeom, host.hull_fnorm.shape[1],
+                            int((host.topo.geom_type == GEOM_MESH).sum()))}
     for i, src in enumerate(srcs):
-        if src.name not in ("lqr_backward", "chain_rollout_closed"):
+        if src.name not in occ_args:
             continue
-        args = () if src.name == "lqr_backward" else (len(ALPHAS),)
-        blocks, threads, smem = _build.occupancy(src, *args)
+        blocks, threads, smem = _build.occupancy(src, *occ_args[src.name])
         log(f"  occupancy {src.name}{variants.get(i, '')}: {blocks} resident "
-            f"blocks of {threads} threads per SM, {smem} bytes of dynamic "
-            f"shared memory per block")
+            f"blocks of {threads} threads per SM, {smem} bytes of shared "
+            f"memory per block")
+    del host
     spills = spill_bytes(_build.ptxas_report(cuda_lqr.SOURCE))
     if spills:
         raise AssertionError(f"lqr_backward spills {spills} bytes")
@@ -1356,18 +1538,56 @@ def main() -> int:
            plain_ms, B * H * SUBSTEPS * sub_ops, nbytes(x0, u_hold, xs))
 
     xk, uk = xs[:, :-1].contiguous(), u_hold
+    # lin_fd: the full-knot differences (the kernel with its composition
+    # off), over one substep at full size, over all substeps at a ragged
+    # batch from the solver's strided view of its states
     lin = cc.lin_fd(plan, 1, xk, uk)
+    compare("lin_fd (one substep)", ("F", "L"), lin,
+            lambda *a: cc.lin_fd_plain(plan, 1, *(a or (xk, uk))),
+            f64(xk, uk))
+    del lin
+    rb = (xs[:509, :-1], uk[:509])
+    compare(f"lin_fd (B=509, {SUBSTEPS} substeps)", ("F", "L"),
+            cc.lin_fd(plan, SUBSTEPS, *rb),
+            lambda *a: cc.lin_fd_plain(plan, SUBSTEPS, *(a or rb)), f64(*rb))
+
+    # lin_fd_fast, as the solver calls it: one launch that differences one
+    # substep and composes the knot's F = A^s, L = (I + ... + A^{s-1}) Bm
+    def fast(*a):
+        return cc.lin_fd_fast(plan, SUBSTEPS, *(a or (xs[:, :-1], uk)))
+
+    F, L = fast()
     diff, plain_ms = compare(
-        "lin_fd", ("F", "L"), lin, lambda *a: cc.lin_fd_plain(plan, 1, *(a or (xk, uk))),
+        "lin_fd_fast", ("F", "L"), (F, L),
+        lambda *a: cc.lin_fd_fast_plain(plan, SUBSTEPS, *(a or (xk, uk))),
         f64(xk, uk))
+    repeats("lin_fd_fast", fast, (F, L))
+    r509 = fast(*rb)
+    compare("lin_fd_fast (B=509)", ("F", "L"), r509,
+            lambda *a: cc.lin_fd_fast_plain(plan, SUBSTEPS, *(a or rb)),
+            f64(*rb))
+    repeats("lin_fd_fast (B=509)", lambda: fast(*rb), r509)
+    del r509, rb
+    launched = device_kernels(fast)
+    log(f"  lin_fd_fast launches on the card, one call: {launched}")
+    if len(launched) != 1 or "lin_fd_kernel" not in next(iter(launched)):
+        raise AssertionError("lin_fd_fast launched more than its kernel")
+    one_ms = event_ms(lambda: cc.lin_fd(plan, 1, xk, uk), 10)
+    unfused_ms = event_ms(lambda: cc.compose_substeps(
+        *cc.lin_fd(plan, 1, xk, uk), SUBSTEPS), 10)
+    rounds = SUBSTEPS.bit_length() - 1
     record("lin_fd", "mujoco_rl_ur5_tpu_torch/csrc/chain_lin_fd.cu",
            "mujoco_rl_ur5_tpu/physics/pallas_chain.py:759", diff,
-           event_ms(lambda: cc.lin_fd(plan, 1, xk, uk), 10), plain_ms,
-           B * H * ((nx + nu + 1) * sub_ops + (nx + nu) * nx * 2),
-           nbytes(xk, uk, *lin))
-    del lin
+           event_ms(fast, 10), plain_ms,
+           B * H * ((nx + nu + 1) * sub_ops + (nx + nu) * nx * 2
+                    + (2 * rounds - 1) * nx ** 3 * 2 + nx * nx * nu * 2),
+           nbytes(xk, uk, F, L), device_ms(fast, "lin_fd_kernel"),
+           f"; in this call the kernel at one substep without its "
+           f"composition {one_ms:.3f} ms, and with the composition after it "
+           f"in torch (the design before) {unfused_ms:.3f} ms; the kernel "
+           f"before this design (PERF.md): 1.637 ms per call (device "
+           f"0.896) plus 5.3 ms of cuBLAS gemm for the composition")
 
-    F, L = cc.lin_fd_fast(plan, SUBSTEPS, xk, uk)
     X, q, U, r = mpc._track_quad(xk, uk, refs)
     XH, qH = mpc._track_term_quad(xs[:, -1], term_ref)
     reg = torch.full((B,), REG, device=dev)
@@ -1564,7 +1784,7 @@ def main() -> int:
 
     log(f"main paths (reach: solve_batch_x, track: track_batch) B={B} H={H} "
         f"substeps={SUBSTEPS} iters={ITERS}")
-    timed_solves(mpc, xr0, targets, x0, q_refs, first)
+    timed_solves(mpc, xr0, targets, x0, q_refs, first, lin_check=True)
 
     # 5. the whole paths through the kernels against the plain versions.
     # Both solvers linearize by forward differences in f32 (see lin_fd). At

@@ -24,8 +24,10 @@ serves both modes: the mode is in the closures and the fused cost pair.
 Semantics per scenario match the JAX solver, with the same two deviations
 from the exact iLQR (forward-difference Jacobians, the plan's baked
 ctrlrange). The best candidate is selected by indexing, which equals the
-JAX package's one-hot contraction whenever the candidates are finite and
-keeps a non-finite losing candidate from reaching the winner.
+JAX package's one-hot contraction whenever the candidates are finite. A
+scenario with a non-finite candidate cost is not improved, as there: the
+contraction's 0 * inf (or 0 * NaN) makes its best cost NaN, so the plan
+is kept and the regularisation grows.
 """
 
 from __future__ import annotations
@@ -82,7 +84,7 @@ def ilqr_chain_batch(
             cost=cbs, sref=sref, tref=tref)
         best = torch.argmin(costs, dim=1)      # first index on ties
         bcost = costs[rows, best]
-        improved = bcost < cost
+        improved = (bcost < cost) & torch.isfinite(costs).all(1)
         xs = torch.where(improved[:, None, None], xs_c[rows, best], xs)
         us = torch.where(improved[:, None, None], us_c[rows, best], us)
         cost = torch.where(improved, bcost, cost)

@@ -18,10 +18,11 @@ Hopper:
     (``chain_substep.cuh``); ``cost_header`` does the same for the fused
     line-search costs (``chain_cost.cuh``).
   * **Kernels** (``csrc/chain_*.cu``, written by hand around those
-    headers): ``rollout_open``, ``lin_fd`` (reached through
-    ``lin_fd_fast``) and ``rollout_closed``. Each calls the one-substep
-    function inside runtime loops over substeps and knots, so nvcc compiles
-    one substep, as Mosaic did for the TPU kernels.
+    headers): ``rollout_open``, ``lin_fd`` (the forward differences, with
+    ``lin_fd_fast``'s composition of one-substep Jacobians in the same
+    launch) and ``rollout_closed``. Each calls the one-substep function
+    inside runtime loops, so nvcc compiles one substep, as Mosaic did for
+    the TPU kernels.
   * **Reach quadratization.** ``make_ee_quad`` builds the Gauss-Newton
     blocks of the end-effector reach cost (FK, geometric Jacobians, outer
     products) over the same entries; ``ee_quad_header`` emits it
@@ -633,7 +634,8 @@ def _open_src(plan: ChainPlan) -> _build.KernelSource:
 @functools.lru_cache(maxsize=None)
 def _lin_src(plan: ChainPlan) -> _build.KernelSource:
     return _build.KernelSource(
-        "chain_lin_fd", "lin_fd", (_P, _P, _P, _P, _I, _I, _P),
+        "chain_lin_fd", "lin_fd",
+        (_P, _P, _P, _P, _I, _I, ctypes.c_longlong, _I, _I, _P),
         {"chain_substep.cuh": substep_header(plan).text})
 
 
@@ -763,37 +765,50 @@ def lin_fd_plain(plan: ChainPlan, substeps: int, xs: torch.Tensor,
     return F.reshape(B, H, nx, nx), L.reshape(B, H, nx, nu)
 
 
-def lin_fd(plan: ChainPlan, substeps: int, xs: torch.Tensor,
-           us: torch.Tensor):
-    """Forward-difference knot Jacobians (step 1e-3): xs (B, H, nx),
-    us (B, H, nu) -> F (B, H, nx, nx), L (B, H, nx, nu)."""
-    if not _route(xs, us):
-        return lin_fd_plain(plan, substeps, xs, us)
+def _lin_launch(plan: ChainPlan, xs: torch.Tensor, us: torch.Tensor,
+                fd_substeps: int, rounds: int):
+    """One csrc/chain_lin_fd.cu launch: differences over ``fd_substeps``
+    substeps, then ``rounds`` squarings (0: none). xs (B, H, nx) with unit
+    element and knot strides (any batch stride: the solver's xs[:, :-1]),
+    us (B, H, nu) contiguous; F, L come out contiguous, batch-first."""
     nx, nu = 2 * plan.nv, plan.nu
     B, H = us.shape[0], us.shape[1]
-    N = B * H
-    xt = xs.reshape(N, nx).t().contiguous()
-    ut = us.reshape(N, nu).t().contiguous()
-    F = torch.empty(nx, nx, N, device=xs.device)
-    L = torch.empty(nx, nu, N, device=xs.device)
-    _build.call(_lin_src(plan), xt.data_ptr(), ut.data_ptr(), F.data_ptr(),
-                L.data_ptr(), N, substeps, _stream(xs))
+    if tuple(xs.shape) != (B, H, nx) or tuple(us.shape) != (B, H, nu):
+        raise ValueError(f"lin_fd: xs {tuple(xs.shape)} and us "
+                         f"{tuple(us.shape)} are not (B, H, {nx}) and "
+                         f"(B, H, {nu})")
+    if xs.stride(2) != 1 or xs.stride(1) != nx or not us.is_contiguous():
+        raise ValueError(f"lin_fd: xs needs rows of {nx} contiguous knots "
+                         f"(strides {xs.stride()}), us must be contiguous")
+    if B * H >= 2 ** 31:
+        raise ValueError(f"lin_fd: B * H = {B * H} instances exceed the "
+                         "kernel's int count")
+    F = torch.empty(B, H, nx, nx, device=xs.device)
+    L = torch.empty(B, H, nx, nu, device=xs.device)
+    _build.call(_lin_src(plan), xs.data_ptr(), us.data_ptr(), F.data_ptr(),
+                L.data_ptr(), B * H, H, xs.stride(0), fd_substeps, rounds,
+                _stream(xs))
     lin_fd.launches += 1
-    return (_bslow(F).reshape(B, H, nx, nx), _bslow(L).reshape(B, H, nx, nu))
+    return F, L
+
+
+def lin_fd(plan: ChainPlan, substeps: int, xs: torch.Tensor,
+           us: torch.Tensor):
+    """Forward-difference knot Jacobians over ``substeps`` substeps (step
+    1e-3): xs (B, H, nx), us (B, H, nu) -> F (B, H, nx, nx),
+    L (B, H, nx, nu)."""
+    if not _route(xs, us):
+        return lin_fd_plain(plan, substeps, xs, us)
+    return _lin_launch(plan, xs, us, substeps, 0)
 
 
 lin_fd.launches = 0
 
 
-def lin_fd_fast(plan: ChainPlan, substeps: int, xs: torch.Tensor,
-                us: torch.Tensor):
-    """Knot Jacobians from a one-substep FD (one ``lin_fd`` launch) and a
-    composition by repeated squaring: F = A^s, L = (I + A + ... +
-    A^{s-1}) B. The knot applies one u to every substep, so L is the
-    geometric sum; the composition is a batched (B*H, 16, 16) matmul."""
-    if substeps & (substeps - 1):
-        raise ValueError("lin_fd_fast: substeps must be a power of two")
-    A, Bm = lin_fd(plan, 1, xs, us)
+def compose_substeps(A: torch.Tensor, Bm: torch.Tensor, substeps: int):
+    """One substep's Jacobians (A, Bm) -> the knot's F = A^s and
+    L = (I + A + ... + A^{s-1}) Bm by repeated squaring, as batched
+    matmul (s a power of two)."""
     F = A
     S = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(A)
     m = 1
@@ -802,6 +817,25 @@ def lin_fd_fast(plan: ChainPlan, substeps: int, xs: torch.Tensor,
         F = F @ F
         m *= 2
     return F, S @ Bm
+
+
+def lin_fd_fast_plain(plan: ChainPlan, substeps: int, xs: torch.Tensor,
+                      us: torch.Tensor):
+    return compose_substeps(*lin_fd_plain(plan, 1, xs, us), substeps)
+
+
+def lin_fd_fast(plan: ChainPlan, substeps: int, xs: torch.Tensor,
+                us: torch.Tensor):
+    """Knot Jacobians from a one-substep FD and a composition by repeated
+    squaring: F = A^s, L = (I + A + ... + A^{s-1}) B. The knot applies one
+    u to every substep, so L is the geometric sum. On CUDA tensors both
+    happen in one ``lin_fd`` launch (counted in ``lin_fd.launches``); the
+    plain version composes by batched matmul."""
+    if substeps < 1 or substeps & (substeps - 1):
+        raise ValueError("lin_fd_fast: substeps must be a power of two")
+    if not _route(xs, us):
+        return lin_fd_fast_plain(plan, substeps, xs, us)
+    return _lin_launch(plan, xs, us, 1, substeps.bit_length() - 1)
 
 
 def rollout_closed_plain(plan: ChainPlan, substeps: int, x0, xbar, ubar, K,

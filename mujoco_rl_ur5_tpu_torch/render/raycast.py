@@ -19,6 +19,14 @@ the JAX package's raycast.py over (B, N, G) with the first-minimum argmin;
 render/cuda_raycast.py holds the kernel that computes the same. Each
 intersection is written out component by component in the order the
 kernel rounds it (csrc/raycast.cu).
+
+The kernel casts a tile of TILE x TILE pixels against the geoms that can
+appear in it only. Its cull table (``Cull``, kept with the camera's tables)
+holds each tile's four side planes and each geom's bounding radius;
+``tile_survivors_plain`` is the plain version of the cull, rounded as the
+kernel rounds it. A culled geom returns the miss sentinel on every ray of
+its tile, so the cull changes no output: ``cast_plain`` stays the unculled
+reference.
 """
 
 from __future__ import annotations
@@ -44,6 +52,12 @@ EPS = 1e-12
 BRANCH = {GEOM_PLANE: 0, GEOM_SPHERE: 1, GEOM_BOX: 2, GEOM_CAPSULE: 3,
           GEOM_CYLINDER: 4, GEOM_MESH: 5}
 BACKGROUND = (0.12, 0.15, 0.2)
+TILE = 16           # pixels per side of the kernel's tile (RAYCAST_TILE)
+# the cull's margins: bounding radii widened by CULL_REL of themselves, and
+# each tile plane's slack by CULL_SLACK (0.1 mm at 1 m): a ray that misses
+# a geom by less still reaches its intersection, whose float32 roundoff
+# is far smaller
+CULL_REL, CULL_SLACK = 1e-3, 1e-4
 # elements of one (B, N, G) intermediate of the plain cast (~134 MB)
 PLAIN_CHUNK = 1 << 25
 
@@ -196,6 +210,19 @@ _CASTS = {0: _plane, 1: _sphere, 2: _box, 3: _capsule, 4: _cylinder}
 # -- geom tables and the plain cast --------------------------------------------
 
 
+class Cull(NamedTuple):
+    """The kernel's cull table for one camera and model: a geom is dropped
+    from a tile when its bounding sphere (centre c relative to the camera,
+    radius r) lies wholly outside one of the tile's side planes,
+    n . c + r + w |c| < 0."""
+
+    planes: torch.Tensor      # (T, 4, 4) per tile: inward unit normal | w
+    radius: torch.Tensor      # (G,) bounding radius about the geom's frame
+    width: int                # the image's pixels, tiled TILE x TILE
+    height: int
+    nhull: int                # mesh geoms of the model (hull slots)
+
+
 class Tables(NamedTuple):
     """What a cast needs beyond the poses: it depends on the model, the
     camera and the hidden set only."""
@@ -205,6 +232,87 @@ class Tables(NamedTuple):
     fwd: torch.Tensor         # (3,) the camera's viewing direction
     ray_fwd: torch.Tensor     # (N,) each unit ray's cosine with fwd
     background: torch.Tensor  # (3,) the colour where nothing is hit
+    cull: Cull                # the kernel's per-tile cull table
+
+
+def bounding_radius(model: Model) -> np.ndarray:
+    """Each geom's bounding-sphere radius about its own frame (the frame of
+    ``geom_table``'s rows): sphere r, box |size|, capsule r + hl, cylinder
+    sqrt(r^2 + hl^2), mesh the largest |vertex| of its hull; planes 0 (the
+    cull never drops a plane)."""
+    t = model.topo
+    size = model.geom_size.detach().cpu().double().numpy()
+    verts = model.hull_verts.detach().cpu().double().numpy()
+    vmask = model.hull_vmask.detach().cpu().double().numpy()
+    rad = np.zeros(t.ngeom)
+    for g, ty in enumerate(t.geom_type):
+        r, hl = size[g, 0], size[g, 1]
+        if ty == GEOM_SPHERE:
+            rad[g] = r
+        elif ty == GEOM_BOX:
+            rad[g] = np.linalg.norm(size[g])
+        elif ty == GEOM_CAPSULE:
+            rad[g] = r + hl
+        elif ty == GEOM_CYLINDER:
+            rad[g] = np.hypot(r, hl)
+        elif ty == GEOM_MESH:
+            mid = int(t.geom_meshid[g])
+            rad[g] = (np.linalg.norm(verts[mid], axis=-1) * vmask[mid]).max()
+    return rad
+
+
+def tile_planes(dirs: torch.Tensor, width: int, height: int) -> np.ndarray:
+    """(T, 4, 4) float32: for each TILE x TILE tile of the image (row-major
+    over tiles, the ragged edge included), the planes through the camera
+    and the tile's outermost columns and rows of rays, each as its inward
+    unit normal n and slack w = max(0, -min n . d over the tile's rays) +
+    CULL_SLACK; a degenerate plane (a one-pixel side) is n = 0, w = 1,
+    which culls nothing."""
+    d = dirs.detach().cpu().double().numpy().reshape(height, width, 3)
+    ty_n, tx_n = -(-height // TILE), -(-width // TILE)
+    ty, tx = np.divmod(np.arange(ty_n * tx_n), tx_n)
+    y0, x0 = ty * TILE, tx * TILE
+    y1 = np.minimum(y0 + TILE, height) - 1
+    x1 = np.minimum(x0 + TILE, width) - 1
+    # each tile's rays, the ragged edge padded with copies of its own
+    # edge rays; their mean marks the inward side
+    rays = np.pad(d, ((0, ty_n * TILE - height), (0, tx_n * TILE - width),
+                      (0, 0)), mode="edge")
+    rays = rays.reshape(ty_n, TILE, tx_n, TILE, 3).transpose(0, 2, 1, 3, 4)
+    rays = rays.reshape(ty_n * tx_n, TILE * TILE, 3)
+    sides = ((d[y0, x0], d[y1, x0]), (d[y0, x1], d[y1, x1]),
+             (d[y0, x0], d[y0, x1]), (d[y1, x0], d[y1, x1]))
+    n = np.stack([np.cross(a, b) for a, b in sides], 1)      # (T, 4, 3)
+    ln = np.linalg.norm(n, axis=-1, keepdims=True)
+    live = ln > 1e-12
+    n = np.where(live, n / np.where(live, ln, 1.0), 0.0)
+    n *= np.sign(n @ rays.mean(1)[..., None])
+    n = n.astype(np.float32).astype(np.float64)
+    low = (rays @ n.transpose(0, 2, 1)).min(1)
+    w = np.maximum(0.0, -low) + CULL_SLACK
+    out = np.concatenate([n, np.where(live, w[..., None], 1.0)], -1)
+    return out.astype(np.float32)
+
+
+def tile_survivors_plain(par, code, cull: Cull) -> torch.Tensor:
+    """The kernel's cull in plain torch, rounded as csrc/raycast.cu rounds
+    it: (B, T, G) bool, True where geom g may be hit by a ray of tile t of
+    frame b (the plane always, a hidden geom never)."""
+    R = [par[..., j] for j in range(9)]
+    o = (par[..., 9], par[..., 10], par[..., 11])
+    c = [-(R[3 * i] * o[0] + R[3 * i + 1] * o[1] + R[3 * i + 2] * o[2])
+         for i in range(3)]
+    ln = _sqrt(c[0] * c[0] + c[1] * c[1] + c[2] * c[2])[:, None]
+    c = [x[:, None] for x in c]                           # (B, 1, G)
+    pl = cull.planes.to(par.device)[None, :, :, :, None]  # (1, T, 4, 4, 1)
+    keep = torch.ones(par.shape[0], pl.shape[1], par.shape[1],
+                      dtype=torch.bool, device=par.device)
+    for k in range(4):
+        n0, n1, n2, w = (pl[:, :, k, j] for j in range(4))
+        keep &= ~((n0 * c[0] + n1 * c[1] + n2 * c[2] + cull.radius) + w * ln
+                  < 0)
+    branch = code[:, 0].to(par.device)
+    return (keep & (branch >= 0)) | (branch == 0)
 
 
 def render_tables(model: Model, cam: Camera, hidden_geoms=()) -> Tables:
@@ -231,9 +339,14 @@ def render_tables(model: Model, cam: Camera, hidden_geoms=()) -> Tables:
     faces = torch.cat([model.hull_fnorm, model.hull_fdist[..., None]],
                       -1).contiguous()
     fwd = -cam.rot[:, 2]
+    cull = Cull(torch.from_numpy(tile_planes(cam.dirs, cam.width,
+                                             cam.height)).to(dev),
+                torch.from_numpy((bounding_radius(model) * (1.0 + CULL_REL))
+                                 .astype(np.float32)).to(dev),
+                cam.width, cam.height, int((t.geom_type == GEOM_MESH).sum()))
     tab = cam.tables[key] = Tables(
         code, faces, fwd, cam.dirs @ fwd,
-        torch.tensor(BACKGROUND, dtype=cam.dirs.dtype, device=dev))
+        torch.tensor(BACKGROUND, dtype=cam.dirs.dtype, device=dev), cull)
     return tab
 
 
@@ -270,6 +383,18 @@ def cast_plain(par, code, faces, dirs):
 
 
 def _cast_frames(par, code, faces, dirs):
+    B, N = par.shape[0], dirs.shape[0]
+    s_all, n_all = geom_hits_plain(par, code, faces, dirs)
+    g = torch.argmin(s_all, -1, keepdim=True)
+    s = torch.gather(s_all, -1, g)[..., 0]
+    n = torch.gather(n_all, -2, g[..., None].expand(B, N, 1, 3))[..., 0, :]
+    n = torch.where((s < BIG)[..., None], n, 0.0)
+    return s, g[..., 0].to(torch.int32), n
+
+
+def geom_hits_plain(par, code, faces, dirs):
+    """Every ray against every geom: s (B, N, G), BIG where the ray misses
+    or the geom is hidden, and the world normal at the hit (B, N, G, 3)."""
     B, G = par.shape[:2]
     N = dirs.shape[0]
     branch, row = (np.asarray(c) for c in code.cpu().numpy().T)
@@ -293,11 +418,7 @@ def _cast_frames(par, code, faces, dirs):
         idx = torch.from_numpy(ids).to(par.device)
         s_all[..., idx] = s
         n_all[..., idx, :] = torch.stack(nw, -1)
-    g = torch.argmin(s_all, -1, keepdim=True)
-    s = torch.gather(s_all, -1, g)[..., 0]
-    n = torch.gather(n_all, -2, g[..., None].expand(B, N, 1, 3))[..., 0, :]
-    n = torch.where((s < BIG)[..., None], n, 0.0)
-    return s, g[..., 0].to(torch.int32), n
+    return s_all, n_all
 
 
 # -- images ----------------------------------------------------------------------
@@ -315,7 +436,7 @@ def render_rgbd(model: Model, kin: Kin, cam: Camera, hidden_geoms=()):
 
     tab = render_tables(model, cam, hidden_geoms)
     par = geom_table(model, kin, cam, hidden_geoms)[0]
-    s, gid, nrm = cast_rays(par, tab.code, tab.faces, cam.dirs)
+    s, gid, nrm = cast_rays(par, tab.code, tab.faces, cam.dirs, tab.cull)
     zdepth = torch.clamp(s * tab.ray_fwd, cam.near, cam.far)
     dbuf = encode_depth(cam, zdepth)
     lambert = (nrm @ tab.fwd).abs()

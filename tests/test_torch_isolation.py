@@ -10,23 +10,22 @@ falls back to the CPU when CUDA is asked for.
 * ``plan_from_arrays`` carries the JAX package's chain plan across: the port
   computes the same rollout on it as on the plan it loads itself.
 * The six narrowphase kernels (csrc/collide_*.cu) compile on the host with
-  g++ through a shim header that stands in for the CUDA runtime and
-  defines the kernels' launch (``COLLIDE_LAUNCH``) as loops over blocks
-  and threads; called through their C entry points on CPU tensors, with
-  hull tables of 34 faces (the finger pad's hull beside a cylinder's
-  prism), they give their plain versions' outputs to the bit (both round
-  every product and sum in the same order; the host build, like nvcc's,
-  does not contract them). The ray cast (csrc/raycast.cu, launched by
-  ``RAYCAST_LAUNCH`` over a grid of pixel blocks by frames) does the same
-  on three 24 x 20 frames of the object pile: s*, geom id and normal equal
-  to render/raycast.py's plain cast to the bit.
+  g++ through the shim of tests/test_torch_host_shim.py, which stands in
+  for the CUDA runtime and runs the kernels' launch (``COLLIDE_LAUNCH``)
+  block by block, a host thread per CUDA thread; called through their C
+  entry points on CPU tensors, with hull tables of 34 faces (the finger
+  pad's hull beside a cylinder's prism), they give their plain versions'
+  outputs to the bit (both round every product and sum in the same order;
+  the host build, like nvcc's, does not contract them). The ray cast
+  (csrc/raycast.cu, a block per 16 x 16 tile of a frame, its geoms culled
+  per tile) does the same on three 24 x 20 frames of the object pile with
+  a geom hidden: s*, geom id and normal equal to render/raycast.py's plain
+  cast to the bit.
 """
 
-import ctypes
 import os
 import pkgutil
 import re
-import shutil
 import subprocess
 import sys
 
@@ -34,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_host_shim import host_build
 
 import mujoco_rl_ur5_tpu_torch as port
 from mujoco_rl_ur5_tpu_torch import OBJECTS
@@ -237,61 +237,9 @@ def test_plan_from_arrays_gives_the_same_rollout():
                                atol=1e-5)
 
 
-# a host stand-in for the CUDA runtime: kernels become plain functions
-_SHIM = """#pragma once
-#include <cmath>
-#include <cstddef>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __restrict__
-struct ShimDim { unsigned x = 0, y = 0, z = 0; };
-static ShimDim blockIdx, threadIdx, blockDim, gridDim;
-typedef void* cudaStream_t;
-static inline int cudaGetLastError() { return 0; }
-#define COLLIDE_LAUNCH(kernel, blocks, stream, ...)                  \\
-  do {                                                               \\
-    gridDim.x = (blocks);                                            \\
-    blockDim.x = COLLIDE_THREADS;                                    \\
-    for (blockIdx.x = 0; blockIdx.x < gridDim.x; ++blockIdx.x)       \\
-      for (threadIdx.x = 0; threadIdx.x < blockDim.x; ++threadIdx.x) \\
-        kernel(__VA_ARGS__);                                         \\
-  } while (0)
-#define RAYCAST_LAUNCH(kernel, gx, gy, stream, ...)                  \\
-  do {                                                               \\
-    gridDim.x = (gx);                                                \\
-    gridDim.y = (gy);                                                \\
-    blockDim.x = RAYCAST_THREADS;                                    \\
-    for (blockIdx.y = 0; blockIdx.y < gridDim.y; ++blockIdx.y)       \\
-      for (blockIdx.x = 0; blockIdx.x < gridDim.x; ++blockIdx.x)     \\
-        for (threadIdx.x = 0; threadIdx.x < blockDim.x;              \\
-             ++threadIdx.x)                                          \\
-          kernel(__VA_ARGS__);                                       \\
-  } while (0)
-"""
-
-
-def _host_build(src, d):
-    (d / "cuda_runtime.h").write_text(_SHIM)
-    for name, text in src.headers.items():
-        (d / name).write_text(text)
-    (d / f"{src.name}.cpp").write_text(src.text)
-    so = d / f"{src.name}.so"
-    subprocess.run(["g++", "-std=c++17", "-O1", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-I",
-                    os.fspath(d), "-o", os.fspath(so),
-                    os.fspath(d / f"{src.name}.cpp")], check=True,
-                   timeout=120)
-    fn = getattr(ctypes.CDLL(os.fspath(so)), src.entry)
-    fn.argtypes, fn.restype = list(src.argtypes), ctypes.c_int
-    return fn
-
-
 @pytest.mark.parametrize("kernel", cuda_collide.KERNELS)
 def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
-    if shutil.which("g++") is None:
-        pytest.fail("g++ is needed to compile the kernel sources on the host")
-    fn = _host_build(cuda_collide.source(kernel), tmp_path)
+    fn = host_build(cuda_collide.source(kernel), tmp_path)
     rng = np.random.default_rng(7)
     B, n, G = 3, 5, 10
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
@@ -335,14 +283,12 @@ def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
 
 
 def test_raycast_kernel_source_runs_on_the_host(tmp_path):
-    if shutil.which("g++") is None:
-        pytest.fail("g++ is needed to compile the kernel sources on the host")
     from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
     from mujoco_rl_ur5_tpu_torch.render import cuda_raycast, raycast
     from mujoco_rl_ur5_tpu_torch.render.camera import make_camera
     from mujoco_rl_ur5_tpu_torch.scene.compile import load_model
     from mujoco_rl_ur5_tpu_torch.scene.mjcf import JNT_FREE
-    fn = _host_build(cuda_raycast.SOURCE, tmp_path)
+    fn = host_build(cuda_raycast.SOURCE, tmp_path)
     m = load_model(OBJECTS, device="cpu")
     t = m.topo
     rng = np.random.default_rng(4)
@@ -359,11 +305,14 @@ def test_raycast_kernel_source_runs_on_the_host(tmp_path):
     par, code, faces = raycast.geom_table(
         m, fk(m, torch.from_numpy(q.astype(np.float32))), cam,
         hidden_geoms=(t.geom_id("object_3_geom"),))
+    cull = raycast.render_tables(m, cam, (t.geom_id("object_3_geom"),)).cull
     N, G, F = dirs.shape[0], par.shape[1], faces.shape[1]
     outs = [torch.empty(B, N), torch.empty(B, N, dtype=torch.int32),
             torch.empty(B, N, 3)]
-    keep = [par, code.to(torch.int32).contiguous(), faces, dirs, *outs]
-    assert fn(*(x.data_ptr() for x in keep), B, N, G, F, None) == 0
+    keep = [par, code.to(torch.int32).contiguous(), faces, dirs,
+            cull.planes, cull.radius, *outs]
+    assert fn(*(x.data_ptr() for x in keep), None, None, B, 24, 20, G, F,
+              cull.nhull, None) == 0
     want = cuda_raycast.cast_rays.plain(par, code, faces, dirs)
     wins = code[want[1].long(), 0][want[0] < 1e9]
     assert set(wins.tolist()) == set(range(6))             # every branch

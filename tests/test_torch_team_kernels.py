@@ -1,31 +1,32 @@
-"""The two kernels redesigned for Hopper, checked on the host.
+"""The kernels redesigned for Hopper, checked on the host.
 
-* ``lqr_backward`` (a team of 16 lanes per scenario) and ``rollout_closed``
-  (the alphas of 32 scenarios in one block) compile with g++ through a
-  shim header that runs every CUDA thread of a block as a host thread:
-  ``__syncwarp`` and ``__syncthreads`` become one barrier over the block
-  (stronger than the card's, which the kernels never need weaker), and
-  ``cp.async`` copies complete at once. Called through their C entry
-  points on CPU tensors at ragged batches (11 scenarios for blocks of 8,
-  37 for blocks of 32), they are held as chip_smoke.py's phase 3 holds
-  them on the card: against the plain version run in float64, each
-  output's error at most twice the plain float32 version's plus 1e-6 of
-  its scale (the host's sinf/cosf and 1/sqrt stand in for the card's).
-  ``rollout_closed`` runs with the solver's 5 alphas and with the 8 its
-  launch takes at most (a block of 256 threads).
+* ``lqr_backward`` (a team of 16 lanes per scenario), ``rollout_closed``
+  (the alphas of 32 scenarios in one block), ``lin_fd`` (24 threads per
+  (scenario, knot) and the composition in shared memory) and the ray cast
+  (a block per 16 x 16 tile, its geoms culled) compile with g++ through
+  the threaded host shim of tests/test_torch_host_shim.py, which runs
+  every CUDA thread of a block as a host thread. Called through their C
+  entry points on CPU tensors at ragged sizes (11 scenarios for blocks of
+  8, 37 for blocks of 32, 15 instances for blocks of 4, tiles of 16 x 8
+  pixels at the image's edge), the chain kernels are held as
+  chip_smoke.py's phase 3 holds them on the card: against the plain
+  version run in float64, each output's error at most twice the plain
+  float32 version's plus 1e-6 of its scale (the host's sinf/cosf and
+  1/sqrt stand in for the card's). ``rollout_closed`` runs with the
+  solver's 5 alphas and with the 8 its launch takes at most (a block of
+  256 threads); ``lin_fd`` with the composition over 8 substeps, over 1
+  (none), and as the full-knot differences over 2 substeps. The ray cast
+  equals the plain cast to the bit (both round every operation alike and
+  take correctly rounded roots: the plain version in float64, the host's
+  sqrtf exactly) and its survivor lists equal the plain cull's.
 * The wrappers' input checks raise on what the kernels do not take,
   before any launch.
 """
 
-import ctypes
-import os
-import re
-import shutil
-import subprocess
-
 import numpy as np
 import pytest
 import torch
+from test_torch_host_shim import host_build
 
 from mujoco_rl_ur5_tpu_torch import ASSET
 from mujoco_rl_ur5_tpu_torch.mpc import cuda_lqr
@@ -35,94 +36,6 @@ from mujoco_rl_ur5_tpu_torch.physics import cuda_chain as cc
 HOME = np.array([0.0, -1.57, 1.57, -1.57, -1.57, 0.0, 0.0, 0.0])
 ALPHAS = (1.0, 0.6, 0.3, 0.1, 0.03)
 ALPHAS8 = (1.0, 0.8, 0.6, 0.45, 0.3, 0.2, 0.1, 0.03)
-
-# a host stand-in for the CUDA runtime: one std::thread per CUDA thread of
-# a block, one barrier over the block, shared memory one static array
-_SHIM = """#pragma once
-#include <algorithm>
-#include <barrier>
-#include <cmath>
-#include <cstddef>
-#include <cstring>
-#include <math.h>
-#include <thread>
-#include <vector>
-using std::min;
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __restrict__
-#define __launch_bounds__(...)
-struct float4 { float x, y, z, w; };
-inline float4 make_float4(float a, float b, float c, float d) {
-  return {a, b, c, d};
-}
-inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
-struct ShimDim { unsigned x = 0, y = 0, z = 0; };
-static thread_local ShimDim threadIdx;
-static ShimDim blockIdx, blockDim, gridDim;
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-static inline int cudaGetLastError() { return 0; }
-template <class F> int cudaFuncSetAttribute(F, int, int) { return 0; }
-template <class F>
-int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
-  *n = 0;
-  return 0;
-}
-static std::barrier<>* shim_bar = nullptr;
-inline void __syncwarp(unsigned = 0xffffffffu) { shim_bar->arrive_and_wait(); }
-inline void __syncthreads() { shim_bar->arrive_and_wait(); }
-alignas(16) static float4 smem4[65536];
-inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) {
-  std::memcpy(d, s, n);
-}
-inline void __pipeline_commit() {}
-inline void __pipeline_wait_prior(size_t) {}
-template <class K, class... A>
-void shim_launch(unsigned grid, unsigned threads, K kernel, A... args) {
-  gridDim.x = grid;
-  blockDim.x = threads;
-  for (unsigned b = 0; b < grid; ++b) {
-    blockIdx.x = b;
-    std::memset(smem4, 0x7f, sizeof(smem4));   // stale shared memory: NaN
-    std::barrier<> bar(threads);
-    shim_bar = &bar;
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < threads; ++t)
-      ts.emplace_back([=] { threadIdx.x = t; kernel(args...); });
-    for (auto& th : ts) th.join();
-  }
-}
-"""
-
-
-def _host_build(src, d):
-    """Compile a kernel source for the host with the threaded shim: the
-    launch becomes shim_launch."""
-    if shutil.which("g++") is None:
-        pytest.fail("g++ is needed to compile the kernel sources on the host")
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "cuda_runtime.h").write_text(_SHIM)
-    (d / "cuda_pipeline.h").write_text("#pragma once\n")
-    for name, text in src.headers.items():
-        (d / name).write_text(text)
-    text = src.text.replace("extern __shared__ float4 smem4[];", "")
-    text = re.sub(r"(\w+)<<<([^,]+),\s*([^,]+),[^>]*>>>\(",
-                  r"shim_launch(\2, \3, \1, ", text)
-    (d / f"{src.name}.cpp").write_text(text)
-    so = d / f"{src.name}.so"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-shared", "-fPIC", "-pthread", "-I",
-                    os.fspath(d), "-o", os.fspath(so),
-                    os.fspath(d / f"{src.name}.cpp")], check=True,
-                   timeout=300)
-    fn = getattr(ctypes.CDLL(os.fspath(so)), src.entry)
-    fn.argtypes, fn.restype = list(src.argtypes), ctypes.c_int
-    return fn
-
 
 def _hold(outs, plain32, plain64):
     """chip_smoke.py's phase 3 rule, output by output."""
@@ -160,7 +73,7 @@ def _riccati_problem(B, H, seed=1):
 
 
 def test_riccati_kernel_source_runs_on_the_host(tmp_path):
-    fn = _host_build(cuda_lqr.SOURCE, tmp_path)
+    fn = host_build(cuda_lqr.SOURCE, tmp_path)
     B, H = 11, 5                       # one full block of 8 and a ragged one
     ins = _riccati_problem(B, H)
     assert cuda_lqr.check_inputs(*ins) == (B, H)
@@ -201,7 +114,7 @@ def closed_kernel(mpc, tmp_path_factory):
         if mode not in built:
             cost = mpc._k_track if mode == "track" else mpc._k_reach
             src = cc._closed_src(mpc.plan, cost, R, RT)
-            built[mode] = _host_build(src, tmp_path_factory.mktemp(mode))
+            built[mode] = host_build(src, tmp_path_factory.mktemp(mode))
         return built[mode]
     return get
 
@@ -230,6 +143,76 @@ def test_rollout_closed_kernel_source_runs_on_the_host(mpc, closed_kernel,
         mpc.plan, S, *[t.double() for t in args], alphas, cost,
         None if sref is None else sref.double(), tref.double())
     _hold(outs, plain, plain64)
+
+
+@pytest.fixture(scope="module")
+def lin_kernel(mpc, tmp_path_factory):
+    return host_build(cc._lin_src(mpc.plan), tmp_path_factory.mktemp("lin"))
+
+
+@pytest.mark.parametrize("mode, substeps", [("fast", 8), ("fast", 1),
+                                            ("full", 2)])
+def test_lin_fd_kernel_source_runs_on_the_host(mpc, lin_kernel, mode,
+                                               substeps):
+    B, H = 5, 3                       # 15 instances: blocks of 4, one ragged
+    rng = np.random.default_rng(5)
+    x0 = _t(np.concatenate([HOME + 0.05 * rng.standard_normal((B, 8)),
+                            0.1 * rng.standard_normal((B, 8))], -1))
+    us = _t(0.1 * rng.standard_normal((B, H, 7)))
+    # the solver's view: the knots of (B, H+1, 16) states, batch-strided
+    xs = cc.rollout_open_plain(mpc.plan, 2, x0, us).contiguous()[:, :-1]
+    F, L = torch.empty(B, H, 16, 16), torch.empty(B, H, 16, 7)
+    fd, rounds = (1, substeps.bit_length() - 1) if mode == "fast" \
+        else (substeps, 0)
+    assert lin_kernel(xs.data_ptr(), us.data_ptr(), F.data_ptr(),
+                      L.data_ptr(), B * H, H, xs.stride(0), fd, rounds,
+                      None) == 0
+    plain = cc.lin_fd_fast_plain if mode == "fast" else cc.lin_fd_plain
+    _hold((F, L), plain(mpc.plan, substeps, xs, us),
+          plain(mpc.plan, substeps, xs.double(), us.double()))
+
+
+def test_raycast_kernel_source_culls_on_the_host(tmp_path):
+    from mujoco_rl_ur5_tpu_torch import OBJECTS
+    from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
+    from mujoco_rl_ur5_tpu_torch.render import cuda_raycast, raycast
+    from mujoco_rl_ur5_tpu_torch.render.camera import make_camera
+    from mujoco_rl_ur5_tpu_torch.scene.compile import load_model
+    from mujoco_rl_ur5_tpu_torch.scene.mjcf import JNT_FREE
+    fn = host_build(cuda_raycast.SOURCE, tmp_path)
+    m = load_model(OBJECTS, device="cpu")
+    t = m.topo
+    rng = np.random.default_rng(6)
+    B, W = 3, 24
+    q = np.tile(m.qpos0.numpy().astype(np.float64), (B, 1))
+    q[:, :6] = [-1.42, -1.08, 0.348, -1.739, 3.142, 0.671]  # pads over the bin
+    for j in np.nonzero(t.jnt_type == JNT_FREE)[0]:
+        qa = t.jnt_qposadr[j]
+        q[:, qa: qa + 2] += rng.uniform(-0.01, 0.01, (B, 2))
+        quat = rng.normal(size=(B, 4))
+        q[:, qa + 3: qa + 7] = quat / np.linalg.norm(quat, axis=1,
+                                                     keepdims=True)
+    cam = make_camera(m, "top_down", W, W)
+    par, code, faces = raycast.geom_table(
+        m, fk(m, torch.from_numpy(q.astype(np.float32))), cam)
+    cull = raycast.render_tables(m, cam).cull
+    N, G, F, T = W * W, par.shape[1], faces.shape[1], 4
+    outs = [torch.empty(B, N), torch.empty(B, N, dtype=torch.int32),
+            torch.empty(B, N, 3), torch.zeros(B, T, dtype=torch.int32),
+            torch.full((B, T, G), -1, dtype=torch.int32)]
+    keep = [par, code.to(torch.int32).contiguous(), faces, cam.dirs,
+            cull.planes, cull.radius, *outs]
+    assert fn(*(x.data_ptr() for x in keep), B, W, W, G, F, cull.nhull,
+              None) == 0
+    want = cuda_raycast.cast_rays(par, code, faces, cam.dirs, cull,
+                                  survivors=True)
+    for got, ref in zip(outs, want):
+        assert torch.equal(got, ref)
+    wins = code[want[1].long(), 0][want[0] < 1e9]
+    assert set(wins.tolist()) == set(range(6))             # every branch
+    count = outs[3]
+    assert int(count.min()) >= 1 and int(count.max()) < G   # some culled
+    assert bool((outs[4][..., 0] == t.geom_id("floor")).all())
 
 
 def _bad(t, how):
@@ -282,6 +265,19 @@ def test_rollout_closed_input_check_raises(mpc, which, how):
         cc.check_closed_inputs(mpc.plan, *(named[k] for k in (
             "x0", "xbar", "ubar", "K", "d")), ALPHAS, named["sref"],
             named["tref"])
+
+
+@pytest.mark.parametrize("which, how", [("xs", "strided"), ("xs", "shape"),
+                                        ("us", "strided"), ("us", "shape")])
+def test_lin_fd_input_check_raises(mpc, which, how):
+    """The launch takes xs with any batch stride but rows of 16 contiguous
+    knots, us contiguous, both (B, H, ...): anything else raises before a
+    build or launch."""
+    B, H = 3, mpc.H
+    ins = {"xs": torch.zeros(B, H + 1, 16)[:, :-1], "us": torch.zeros(B, H, 7)}
+    ins[which] = _bad(ins[which], how)
+    with pytest.raises(ValueError, match="lin_fd"):
+        cc._lin_launch(mpc.plan, ins["xs"], ins["us"], 1, 1)
 
 
 def test_rollout_closed_input_check_counts_alphas(mpc):
