@@ -8,12 +8,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: the thirteen build units from csrc/, six of the batched solves
      (five kernels; rollout_closed once with the track costs and once with
-     the reach costs), the six collide kernels and the ray cast, one
-     nvcc per source, in parallel, with the build time and ptxas's register
-     and spill report (lqr_backward must spill nothing), and the resident
-     blocks per SM, threads and shared memory per block of the four
-     redesigned kernels (lqr_backward, rollout_closed, lin_fd, the ray
-     cast at the object pile's table sizes);
+     the reach costs), the six collide kernels and the ray cast, one nvcc
+     per source, in parallel, with the build time and ptxas's register,
+     stack and spill report (lqr_backward and hull_hull must spill
+     nothing), and the resident blocks per SM, threads and shared memory
+     per block of the six redesigned kernels (lqr_backward, rollout_closed,
+     lin_fd, rollout_open, hull_hull and the ray cast at the object pile's
+     table sizes);
   3. kernels: each kernel's wrapper at the shapes the main paths give it
      (B=4096, H=64, substeps=8), held against its plain PyTorch version on
      the same inputs on the card, output by output, with the tolerance
@@ -26,8 +27,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      are held over one substep and, at B=509, over eight. rollout_closed is
      held with both fused costs, and its costs also against the plain cost
      of the candidates it returned; ee_quad_gn's assembly into the full
-     stage Hessians is timed beside it. The redesigned kernels are also
-     held at a ragged batch (B=509; H=8 for rollout_closed, whose plain
+     stage Hessians is timed beside it. rollout_open (a team of 8 lanes
+     per scenario) is held at B=4096 and B=509, twice to the bit and timed
+     on the device, beside the latency floors of the one-thread substep
+     and (a hand-counted estimate) the team's. The redesigned kernels are
+     also held at a ragged batch (B=509; H=8 for rollout_closed, whose plain
      version is launch-bound), called twice on the same inputs (equal to
      the bit), timed on the device under torch.profiler and printed beside
      their earlier times;
@@ -73,11 +77,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the bin by family, the rest gap and the largest speeds; two 5-step
      rolls that must agree to the bit; all six collide kernels against
      their plain versions at the settled pile's shapes, timed beside their
-     plain versions and bounds; the step at iterations=100 (median of 3
-     calls of 25 steps from the seeded drop, one launch of each collide
-     kernel per step, the calls equal to the bit); one step at B=64,
-     iterations=30 against the CPU's plain path with phase 8's one-step
-     limits, beside the CPU against itself one ulp off;
+     plain versions and bounds (hull_hull also once with a planted fault,
+     the finger pad's face count one short, which the comparison must
+     flag); the step at iterations=100
+     (median of 3 calls of 25 steps from the seeded drop, one launch of
+     each collide kernel per step, the calls equal to the bit); one step
+     at B=64, iterations=30 against the CPU's plain path with phase 8's
+     one-step limits, beside the CPU against itself one ulp off;
  10. the settled pile's RGB-D observation from the top_down camera at
      200 x 200: the ray-cast kernel (a block per 16 x 16 tile, the geoms
      culled per tile) against its plain version on 16 frames (geom id, s*
@@ -126,6 +132,11 @@ import torch
 # card peaks (NVIDIA H100 SXM data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12       # float32 outside the tensor cores
+# cycles per dependent level of a latency floor: an f32 (fused) arithmetic
+# operation, and an exchange between lanes (a shuffle, or a shared-memory
+# store, barrier and load); taken as 4 and 30, the order of the dependent
+# latencies of recent NVIDIA GPUs (an assumption, not a measurement)
+OP_CYCLES, EX_CYCLES = 4, 30
 
 B, H, SUBSTEPS, ITERS = 4096, 64, 8, 6
 NCON, STEPS, SETTLE = 128, 25, 300       # the contact step's cell
@@ -379,7 +390,7 @@ def profile_solve(solve, lin_check=False) -> None:
         check_lin_spans(prof)
 
 
-def collide_flops(kernel: str, V: int, F: int) -> tuple:
+def collide_flops(kernel: str, V: int, F: int, team: int = 1) -> tuple:
     """Floating-point operations of one (pair, scenario) of a collide
     function: (what the function needs, what the kernel executes). What it
     needs: a pose from a quaternion 36; a vertex to world 18, once per hull;
@@ -389,13 +400,18 @@ def collide_flops(kernel: str, V: int, F: int) -> tuple:
     corner tested against a box 59; a SAT axis 60 (a cross axis 78). The
     deepest-vertex pass of hull-hull and box-hull runs on the side whose
     face lost, which the data decide: it is counted on the smaller side.
-    The kernel moves every vertex to world again for each face and each
-    output slot (24 and 25 per vertex), which keeps its registers few.
-    A sphere probe scores a center against a face 7 and writes a contact
-    12; a capsule's hull centre is a masked sum 24 per vertex, its five
-    probe centres 48. Call it with the hulls' real vertex and face counts
-    for what the function needs, with the padded ones for what the kernel
-    executes."""
+    The box-hull and plane-hull kernels move every vertex to world again
+    for each face and each output slot (24 and 25 per vertex), which keeps
+    their registers few. The hull-hull kernel moves each vertex and face to
+    world once and loops over the real ones only, but each of its ``team``
+    lanes forms both poses, the team reduces its faces' maxima (3 per
+    step), the winning face moves to world once more, and the deepest pass
+    ranks at least 8 vertices against each other (3 per pair). A sphere
+    probe scores a center against a face 7 and writes a contact 12; a
+    capsule's hull centre is a masked sum 24 per vertex, its five probe
+    centres 48. Call it with the hulls' real vertex and face counts for
+    what the function needs, with the padded ones for what the kernels
+    other than hull-hull execute."""
     pose = 2 * 36
     if kernel == "sphere_hull":
         n = 36 + F * (20 + 7) + 12
@@ -409,9 +425,12 @@ def collide_flops(kernel: str, V: int, F: int) -> tuple:
     if kernel == "plane_hull":
         return (pose + 5 + V * 25 + 8 * 7, pose + 5 + V * 25 + 8 * 25)
     if kernel == "hull_hull":
+        Vx = max(V, 8)
         return (pose + 2 * V * 18 + 2 * F * 22 + 2 * F * V * 6 + V * 7
                 + 8 * 7,
-                pose + 2 * F * (22 + V * 24) + V * 25 + 8 * 25)
+                team * pose + 2 * Vx * 18 + 2 * F * 22 + 20
+                + 2 * F * V * 6 + 2 * 3 * (team.bit_length() - 1) + Vx * 7
+                + Vx * Vx * 3 + 8 * 7)
     return (pose + (8 + V) * 18 + (6 + F) * 22 + (8 * F + 6 * V) * 6 + 8 * 7
             + 8 * 7,
             pose + F * (22 + 8 * 24) + 6 * (22 + V * 24) + 8 * 25 + 8 * 25)
@@ -548,15 +567,35 @@ def settle(log, model, state, warm, dump=None):
     return state, warm
 
 
-def collide_rows(log, model, state) -> dict:
-    """Each collide kernel of the model's groups against its plain version
-    at the shapes of ``state``'s step (per active slot within COLLIDE_TOL
-    after a per-(pair, scenario) sort by dist, at most 0.01% of the entries
-    outside), timed with CUDA events beside its plain version and its
-    bound; returns their rows of the kernel table (launches still None)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def collide_diff(got, want) -> tuple:
+    """A collide kernel's outputs against its plain version's: per active
+    slot (dist < 1) within COLLIDE_TOL after a per-(pair, scenario) sort by
+    dist, and no inactive plain slot active in the kernel's. Returns (the
+    (pair, scenario) entries outside, the entries with an active slot, the
+    largest difference over the active slots)."""
+    order_g = torch.argsort(got[2], dim=-1, stable=True)
+    order_w = torch.argsort(want[2], dim=-1, stable=True)
+    gd, wd = got[2].gather(-1, order_g), want[2].gather(-1, order_w)
+    gp, gn, wp, wn = (x.gather(-2, o[..., None].expand(x.shape))
+                      for x, o in ((got[0], order_g), (got[1], order_g),
+                                   (want[0], order_w), (want[1], order_w)))
+    act = wd < 1.0
+    err = torch.stack([(gd - wd).abs(), (gp - wp).abs().amax(-1),
+                       (gn - wn).abs().amax(-1)], -1).amax(-1)
+    bad_slot = (act & (err > COLLIDE_TOL)) | (~act & (gd < 1.0))
+    live = int(act.any(-1).sum())
+    max_err = float(err[act].max()) if bool(act.any()) else 0.0
+    return int(bad_slot.any(-1).sum()), live, max_err
 
+
+def collide_rows(log, model, state, fault=False) -> dict:
+    """Each collide kernel of the model's groups against its plain version
+    at the shapes of ``state``'s step (``collide_diff``: at most 0.01% of
+    the entries outside), timed with CUDA events beside its plain version
+    and its bound; with ``fault``, the hull-hull kernel once more with the
+    finger pad's row (the most faces) one face short, which the comparison
+    must flag. Returns their
+    rows of the kernel table (launches still None)."""
     from mujoco_rl_ur5_tpu_torch.physics import (
         collision, constraints, cuda_collide,
     )
@@ -581,33 +620,11 @@ def collide_rows(log, model, state) -> dict:
         want = wrapper.plain(*args)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        order_g = torch.argsort(got[2], dim=-1, stable=True)
-        order_w = torch.argsort(want[2], dim=-1, stable=True)
-        gd, wd = got[2].gather(-1, order_g), want[2].gather(-1, order_w)
-        gp, gn, wp, wn = (x.gather(-2, o[..., None].expand(x.shape))
-                          for x, o in ((got[0], order_g), (got[1], order_g),
-                                       (want[0], order_w),
-                                       (want[1], order_w)))
-        act = wd < 1.0
-        err = torch.stack([(gd - wd).abs(), (gp - wp).abs().amax(-1),
-                           (gn - wn).abs().amax(-1)], -1).amax(-1)
-        bad_slot = (act & (err > COLLIDE_TOL)) | (~act & (gd < 1.0))
-        live = act.any(-1)
-        bad = int(bad_slot.any(-1).sum())
-        max_err = float(err[act].max()) if bool(act.any()) else 0.0
+        bad, live, max_err = collide_diff(got, want)
         ms = event_ms(lambda: wrapper(*args), 20)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                wrapper(*args)
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and f"{name}_kernel" in e.key and e.self_device_time_total]
         # per recorded launch: the profiler may drop events of a short run,
         # or all of them (then "not measured": None)
-        dev_ms = (sum(e.self_device_time_total for e in ev)
-                  / sum(e.count for e in ev) / 1e3) if ev else None
+        dev_ms = device_ms(lambda: wrapper(*args), f"{name}_kernel")
         n = g1.shape[1]
         V, F = model.hull_verts.shape[1], model.hull_fnorm.shape[1]
         # what is needed: the hulls' real vertices and faces in these pairs
@@ -620,7 +637,8 @@ def collide_rows(log, model, state) -> dict:
             Vr = float(model.hull_vmask[mesh].sum(-1).mean())
             Fr = float((model.hull_fdist[mesh] < 1e9).sum(-1).float().mean())
         need = collide_flops(name, Vr, Fr)[0]
-        executed = collide_flops(name, V, F)[1]
+        executed = (collide_flops(name, Vr, Fr, cuda_collide.HULL_TEAM)[1]
+                    if name == "hull_hull" else collide_flops(name, V, F)[1])
         ops = B * n * need
         nbyte = nbytes(cpos, cquat, g1.int(), g2.int(), *got)
         t_bytes = nbyte / PEAK_BYTES_PER_S * 1e3
@@ -637,16 +655,35 @@ def collide_rows(log, model, state) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "device_ms": dev_ms}
         dev = "not measured" if dev_ms is None else f"{dev_ms:.3f} ms"
-        log(f"  {name}: {n} pairs x {B}, {int(live.sum())} (pair, scenario) "
+        log(f"  {name}: {n} pairs x {B}, {live} (pair, scenario) "
             f"entries with an active slot, {bad} outside the tolerance; max "
             f"|kernel - plain| {max_err:.3e}; {ms:.3f} ms (device "
             f"{dev}), plain {plain_ms:.2f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms ({ops:.3e} ops needed, "
             f"{nbyte:.3e} bytes; the kernel executes "
             f"{B * n * executed:.3e} ops)")
-        if bad > 1e-4 * max(int(live.sum()), 1):
+        if bad > 1e-4 * max(live, 1):
             raise AssertionError(f"{name}: {bad} entries outside the "
                                  f"tolerance")
+        if name != "hull_hull":
+            continue
+        log("  hull_hull: the one-thread kernel before this design, over "
+            "the padded tables: 2.313 ms per call (device 2.292) on the box "
+            "pile, 2.681 (2.665) on the object pile")
+        if fault:
+            nface = hulls.nface
+            short = nface.clone()
+            pad = int(torch.argmax(nface))
+            short[pad] -= 1
+            bad_f, _, err_f = collide_diff(cuda_collide.hull_hull_launch(
+                cpos, cquat, hulls._replace(nface=short), g1, g2), want)
+            log(f"  hull_hull, planted fault (row {pad}'s face count "
+                f"{int(nface[pad])} one short): {bad_f} entries outside the "
+                f"tolerance, max |kernel - plain| {err_f:.3e}: "
+                + ("caught" if bad_f > 1e-4 * max(live, 1) else "NOT caught"))
+            if not bad_f > 1e-4 * max(live, 1):
+                raise AssertionError("hull_hull's planted fault was not "
+                                     "caught")
     return rows
 
 
@@ -941,8 +978,9 @@ def object_pile(log):
     state, warm = settle(log, model, drop, drop_warm)
     rolls_agree(log, model, state, warm)
 
-    # 9b. the six collide kernels at the settled pile's shapes
-    rows = collide_rows(log, model, state)
+    # 9b. the six collide kernels at the settled pile's shapes, and
+    # hull_hull's planted fault
+    rows = collide_rows(log, model, state, fault=True)
     if set(rows) != set(OBJ_COLLIDE):
         raise AssertionError(f"collide groups {sorted(rows)}, expected "
                              f"{sorted(OBJ_COLLIDE)}")
@@ -1397,8 +1435,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    sm_mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
     log(f"device: {kind} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda} | largest SM clock {sm_mhz} MHz")
     dev = torch.device("cuda")
 
     # 2. build
@@ -1424,6 +1466,9 @@ def main() -> int:
     host = compile_file(OBJECTS)
     occ_args = {"lqr_backward": (), "chain_lin_fd": (),
                 "chain_rollout_closed": (len(ALPHAS),),
+                "chain_rollout_open": (),
+                "collide_hull_hull": tuple(host.hull_verts.shape[:2])
+                + (host.hull_fnorm.shape[1],),
                 "raycast": (host.topo.ngeom, host.hull_fnorm.shape[1],
                             int((host.topo.geom_type == GEOM_MESH).sum()))}
     for i, src in enumerate(srcs):
@@ -1434,9 +1479,11 @@ def main() -> int:
             f"blocks of {threads} threads per SM, {smem} bytes of shared "
             f"memory per block")
     del host
-    spills = spill_bytes(_build.ptxas_report(cuda_lqr.SOURCE))
-    if spills:
-        raise AssertionError(f"lqr_backward spills {spills} bytes")
+    for what, src in (("lqr_backward", cuda_lqr.SOURCE),
+                      ("hull_hull", cuda_collide.source("hull_hull"))):
+        spills = spill_bytes(_build.ptxas_report(src))
+        if spills:
+            raise AssertionError(f"{what} spills {spills} bytes")
     stamp("phases 1-2")
 
     plan, nx, nu, nq, w = mpc.plan, mpc.nx, mpc.nu, mpc.nq, mpc.w
@@ -1526,16 +1573,62 @@ def main() -> int:
     def f64(*ts):
         return [t.double() if torch.is_tensor(t) else t for t in ts]
 
-    xs = cc.rollout_open(plan, SUBSTEPS, x0, u_hold)
-    diff, plain_ms = compare(
-        "rollout_open", ("xs",), (xs,),
-        lambda *a: (cc.rollout_open_plain(plan, SUBSTEPS,
-                                          *(a or (x0, u_hold))),),
-        f64(x0, u_hold))
+    # rollout_open, held by that rule at B=4096 and at a ragged B=509,
+    # called twice (equal to the bit), timed with CUDA events and on the
+    # device. Its latency floors: H x substeps dependent substeps of the
+    # critical path's levels, at OP_CYCLES per arithmetic level and
+    # EX_CYCLES per exchange (shuffle, or shared-memory round trip), at the
+    # card's largest SM clock: the one-thread substep's depth from the
+    # emitter (chain_substep.cuh; a floor for the function), and the team
+    # design's from a hand count (cc.team_depth: a floor for this design)
+    rb = (x0[:509], u_hold[:509])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = {B: cc.rollout_open_plain(plan, SUBSTEPS, x0, u_hold)}
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain[509] = cc.rollout_open_plain(plan, SUBSTEPS, *rb)
+    ref = {B: cc.rollout_open_plain(plan, SUBSTEPS, *f64(x0, u_hold)),
+           509: cc.rollout_open_plain(plan, SUBSTEPS, *f64(*rb))}
+    arith, exch = cc.team_depth(plan)
+    levels = cc.substep_header(plan).ops["depth"]
+    floor = H * SUBSTEPS * levels * OP_CYCLES / (sm_mhz * 1e3)
+    team_floor = (H * SUBSTEPS * (arith * OP_CYCLES + exch * EX_CYCLES)
+                  / (sm_mhz * 1e3))
+    log(f"  rollout_open latency floors at {sm_mhz} MHz, {OP_CYCLES} cycles "
+        f"per arithmetic level and {EX_CYCLES} per exchange: one thread "
+        f"{levels} levels per substep, {floor:.4f} ms; this team design "
+        f"(hand-counted) {arith} levels and {exch} exchanges, "
+        f"{team_floor:.4f} ms")
+
+    def run_open(*a):
+        return cc.rollout_open(plan, SUBSTEPS, *(a or (x0, u_hold)))
+
+    xs = run_open()
+    for bb, got in ((B, xs), (509, run_open(*rb))):
+        r = ref[bb]
+        ek = float((got.double() - r).abs().max() / r.abs().max())
+        ep = float((plain[bb].double() - r).abs().max() / r.abs().max())
+        d = float((got - plain[bb]).abs().max())
+        log(f"  rollout_open xs, B={bb}: max |kernel - plain| {d:.3e}; "
+            f"error vs float64: kernel {ek:.3e}, plain {ep:.3e}")
+        check(f"rollout_open xs, B={bb}", ek, 2 * ep + 1e-6,
+              "kernel error vs float64")
+        if bb == B:
+            diff = d
+    repeats("rollout_open", lambda: (run_open(),), (xs,))
+    ms = event_ms(run_open, 10)
+    dev_ms = device_ms(run_open, "rollout_open_kernel")
+    log(f"  rollout_open (team of {cc.OPEN_TEAM}): {ms:.3f} ms per call, "
+        "device " + ("not measured" if dev_ms is None else f"{dev_ms:.3f} ms")
+        + f", {(dev_ms or ms) / floor:.1f}x the one-thread latency floor")
     record("rollout_open", "mujoco_rl_ur5_tpu_torch/csrc/chain_rollout_open.cu",
-           "mujoco_rl_ur5_tpu/physics/pallas_chain.py:530", diff,
-           event_ms(lambda: cc.rollout_open(plan, SUBSTEPS, x0, u_hold), 10),
-           plain_ms, B * H * SUBSTEPS * sub_ops, nbytes(x0, u_hold, xs))
+           "mujoco_rl_ur5_tpu/physics/pallas_chain.py:530", diff, ms,
+           plain_ms, B * H * SUBSTEPS * sub_ops, nbytes(x0, u_hold, xs),
+           dev_ms, "; the one-thread kernel before this design, "
+           "batch-fastest with its transposes: 2.488 ms per call (device "
+           "2.428)")
+    del plain, ref, rb
 
     xk, uk = xs[:, :-1].contiguous(), u_hold
     # lin_fd: the full-knot differences (the kernel with its composition

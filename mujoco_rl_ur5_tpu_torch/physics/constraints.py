@@ -65,10 +65,13 @@ def kb_from_solref(solref: torch.Tensor, dmax: torch.Tensor):
 
 
 def hulls(model: Model) -> cuda_collide.Hulls:
-    """The model's hull tables as the narrowphase wrappers take them."""
+    """The model's hull tables as the narrowphase wrappers take them, with
+    each row's real vertex and face counts."""
     return cuda_collide.Hulls(ix(model.topo.geom_meshid, model.hull_verts
                                  .device), model.hull_verts, model.hull_vmask,
-                              model.hull_fnorm, model.hull_fdist)
+                              model.hull_fnorm, model.hull_fdist,
+                              *cuda_collide.hull_counts(model.hull_vmask,
+                                                        model.hull_fdist))
 
 
 def collision_poses(model: Model, kin: Kin):

@@ -22,7 +22,11 @@ Hopper:
     ``lin_fd_fast``'s composition of one-substep Jacobians in the same
     launch) and ``rollout_closed``. Each calls the one-substep function
     inside runtime loops, so nvcc compiles one substep, as Mosaic did for
-    the TPU kernels.
+    the TPU kernels. ``rollout_open`` runs instead a team of ``OPEN_TEAM``
+    lanes per scenario, each owning a dof and its body, on the plan recast
+    per dof and padded to a whole team (``team_plan``; its constants in
+    ``team_header``, ``chain_team.cuh``), with generic code over those
+    constants.
   * **Reach quadratization.** ``make_ee_quad`` builds the Gauss-Newton
     blocks of the end-effector reach cost (FK, geometric Jacobians, outer
     products) over the same entries; ``ee_quad_header`` emits it
@@ -185,58 +189,71 @@ def _lit(x) -> str:
 
 class _Emitter:
     """Collects SSA statements ``const float tN = ...;`` and counts the
-    arithmetic operations they perform."""
+    arithmetic operations they perform; each value also carries its depth,
+    the longest chain of dependent operations that leads to it (an
+    operation counts one level, a clamp two, a negation none: it folds into
+    its consumer)."""
 
     def __init__(self):
         self.lines: list[str] = []
         self.ops = 0
 
-    def value(self, expr: str, ops: int = 1) -> "Var":
+    def value(self, expr: str, ops: int = 1, deps=()) -> "Var":
         name = f"t{len(self.lines)}"
         self.lines.append(f"  const float {name} = {expr};")
         self.ops += ops
-        return Var(self, name)
+        return Var(self, name, ops + max((d.depth for d in deps), default=0))
 
     def inputs(self, array: str, n: int) -> list:
         return [self.value(f"{array}[{i}]", ops=0) for i in range(n)]
+
+
+def depth(values) -> int:
+    """The deepest of emitted values (floats, the folded constants: 0)."""
+    return max((x.depth for x in values if isinstance(x, Var)), default=0)
 
 
 class Var:
     """A scalar value in emitted C++: arithmetic emits a new statement.
     Mirrors the few torch.Tensor methods the generated physics calls."""
 
-    __slots__ = ("em", "name")
+    __slots__ = ("em", "name", "depth")
 
-    def __init__(self, em: _Emitter, name: str):
-        self.em, self.name = em, name
+    def __init__(self, em: _Emitter, name: str, depth: int = 0):
+        self.em, self.name, self.depth = em, name, depth
 
     def _bin(self, op, a, b):
-        return self.em.value(f"{_lit(a)} {op} {_lit(b)}")
+        return self.em.value(f"{_lit(a)} {op} {_lit(b)}",
+                             deps=[x for x in (a, b) if isinstance(x, Var)])
+
+    def _un(self, expr: str, ops: int = 1):
+        return self.em.value(expr, ops, (self,))
 
     def __add__(self, o): return self._bin("+", self, o)
     def __radd__(self, o): return self._bin("+", o, self)
     def __mul__(self, o): return self._bin("*", self, o)
     def __rmul__(self, o): return self._bin("*", o, self)
     def __rtruediv__(self, o): return self._bin("/", o, self)
-    def __neg__(self): return self.em.value(f"-{self.name}", ops=0)
-    def cos(self): return self.em.value(f"cosf({self.name})")
-    def sin(self): return self.em.value(f"sinf({self.name})")
-    def sqrt(self): return self.em.value(f"sqrtf({self.name})")
-    def rsqrt(self): return self.em.value(f"rsqrtf({self.name})")
+    def __neg__(self): return self._un(f"-{self.name}", ops=0)
+    def cos(self): return self._un(f"cosf({self.name})")
+    def sin(self): return self._un(f"sinf({self.name})")
+    def sqrt(self): return self._un(f"sqrtf({self.name})")
+    def rsqrt(self): return self._un(f"rsqrtf({self.name})")
 
     def sincos(self):
         n = f"t{len(self.em.lines)}"
         self.em.lines.append(f"  float {n}c, {n}s; "
                              f"sincosf({self.name}, &{n}s, &{n}c);")
         self.em.ops += 2
-        return Var(self.em, n + "c"), Var(self.em, n + "s")
+        return (Var(self.em, n + "c", self.depth + 1),
+                Var(self.em, n + "s", self.depth + 1))
 
     def clamp_min(self, c):
-        return self.em.value(f"fmaxf({self.name}, {_lit(c)})")
+        return self._un(f"fmaxf({self.name}, {_lit(c)})")
 
     def clamp(self, lo, hi):
-        return self.em.value(
-            f"fminf(fmaxf({self.name}, {_lit(lo)}), {_lit(hi)})", ops=2)
+        return self._un(f"fminf(fmaxf({self.name}, {_lit(lo)}), {_lit(hi)})",
+                        ops=2)
 
 
 @dataclass(frozen=True)
@@ -521,7 +538,8 @@ def substep_header(plan: ChainPlan) -> Generated:
         *em.lines, *stores, "}",
         "__device__ __forceinline__ void chain_clip_ctrl(float* u) {",
         *clip, "}", ""])
-    return Generated(text, {"substep": em.ops, "clip": 2 * nu})
+    return Generated(text, {"substep": em.ops, "clip": 2 * nu,
+                            "depth": depth(q2 + v2)})
 
 
 @functools.lru_cache(maxsize=None)
@@ -620,6 +638,241 @@ def ee_quad_header(plan: ChainPlan, *cfg) -> Generated:
     return Generated(text, {"quad": em.ops})
 
 
+# -- the team variant of rollout_open -------------------------------------------
+
+OPEN_TEAM = 8    # lanes per scenario of csrc/chain_rollout_open.cu (its T)
+
+
+def _team_fields(nroles: int) -> tuple:
+    """The per-role float constants of chain_team.cuh, in this order:
+    (name, width); the four masks over the roles are nroles wide."""
+    return (("BROT", 9), ("BPOS", 3), ("JPOS", 3), ("AXIS", 3), ("AA", 9),
+            ("IMAA", 9), ("KX", 9), ("JREF", 1), ("IPOS", 3), ("ILOC", 6),
+            ("MASS", 1), ("ADIAG", 1), ("DAMP", 1), ("GEAR", 1), ("LO", 1),
+            ("HI", 1), ("WANC", nroles), ("WSUB", nroles), ("WM", nroles),
+            ("WS", nroles))
+
+
+def _team_offsets(nroles: int) -> tuple:
+    """({name: offset} of the per-role constants, their width)."""
+    off, at = {}, 0
+    for name, w in _team_fields(nroles):
+        off[name], at = at, at + w
+    return off, at
+
+
+@dataclass(frozen=True)
+class TeamPlan:
+    """The plan recast for lanes that own one dof each (a role): bodies
+    without a joint merged into their parent (transforms composed into the
+    children's, mass properties combined), each role's constants in
+    ``rows`` (nroles, width of _team_fields), its actuator ``act``, the
+    2^k-th ancestor role of each pointer-jumping round ``jump`` (-1 past
+    the root), and each equality's dofs and folded constants. The nv real
+    roles come first; nroles rounds nv up to a whole team of OPEN_TEAM
+    lanes with inert roles: no body, no actuator, no ancestor, and a mass
+    matrix row and column of the identity, so their accelerations are 0
+    and the real roles' sums only add zeros."""
+
+    nroles: int
+    rows: np.ndarray        # (nroles, ncols) float64
+    act: tuple              # actuator per role, -1 for none
+    jump: tuple             # (rounds, nroles)
+    eqs: tuple              # (d1, d2, poly[5], q01, q02, k, hk+cd, h(hk+cd))
+    org: tuple
+    a0: tuple               # -gravity
+    h: float
+
+
+def _pose(p, R):
+    return np.asarray(p, float), np.asarray(R, float)
+
+
+def _compose(a, b):
+    """a then b (b's frame in a's): (pa + Ra pb, Ra Rb)."""
+    return a[0] + a[1] @ b[0], a[1] @ b[1]
+
+
+@functools.lru_cache(maxsize=None)
+def team_plan(plan: ChainPlan) -> TeamPlan:
+    nv, nmov = plan.nv, plan.nmov
+    dof = [int(d) for d in plan.jnt_dof]
+    parent = [int(s) for s in plan.parent_slot]
+    role_slot = [int(s) for s in plan.dof_slot]
+    if sorted(d for d in dof if d >= 0) != list(range(nv)):
+        raise ValueError("team rollout: every dof needs its own body")
+    local = [_pose(plan.body_pos[i], plan.body_rot[i]) for i in range(nmov)]
+    # each role's pre-joint transform from its parent role's frame (or the
+    # world), through the bodies without a joint between them
+    pre, prole = [], []
+    for r in range(nv):
+        i = role_slot[r]
+        t = local[i]
+        ps = parent[i]
+        while ps >= 0 and dof[ps] < 0:
+            t = _compose(local[ps], t)
+            ps = parent[ps]
+        if ps < 0:                    # the chain's static parent, in world
+            j = i
+            while parent[j] >= 0:
+                j = parent[j]
+            t = _compose(_pose(plan.parent_pose[j][:3],
+                               plan.parent_pose[j][3:].reshape(3, 3)), t)
+        pre.append(t)
+        prole.append(dof[ps] if ps >= 0 else -1)
+        if prole[-1] >= r:
+            raise ValueError("team rollout: dofs must follow their parents")
+    # mass properties about each role body's frame, with its fixed bodies
+    parts = [[(float(plan.mass[role_slot[r]]),
+               np.asarray(plan.ipos[role_slot[r]], float),
+               plan.irot[role_slot[r]] @ np.diag(plan.idiag[role_slot[r]])
+               @ plan.irot[role_slot[r]].T)] for r in range(nv)]
+    for f in range(nmov):
+        if dof[f] >= 0:
+            continue
+        t = (np.zeros(3), np.eye(3))
+        ps = f
+        while ps >= 0 and dof[ps] < 0:
+            t = _compose(local[ps], t)
+            ps = parent[ps]
+        if ps < 0:
+            continue                   # static: moves with no dof
+        Rr = t[1] @ plan.irot[f]
+        parts[dof[ps]].append((float(plan.mass[f]), t[0] + t[1] @ plan.ipos[f],
+                               Rr @ np.diag(plan.idiag[f]) @ Rr.T))
+    anc = np.asarray(plan.anc_dof, bool)[role_slot]          # (nv, nv)
+    mm = np.asarray(plan.m_mask, bool)
+    sm = mm | mm.T
+    for d1, d2 in zip(plan.eq_d1, plan.eq_d2):
+        sm[int(d1), int(d2)] = sm[int(d2), int(d1)] = True
+    act = [-1] * nv
+    for j, d in enumerate(plan.act_dof):
+        act[int(d)] = j
+    h = float(plan.timestep)
+    nr = -(-nv // OPEN_TEAM) * OPEN_TEAM
+    pad = [0.0] * (nr - nv)
+    rows = []
+    for r in range(nv):
+        i = role_slot[r]
+        ms = [m for m, _, _ in parts[r]]
+        M = sum(ms)
+        C = sum(m * c for m, c, _ in parts[r]) / M
+        Iloc = sum(I + m * (np.dot(c - C, c - C) * np.eye(3)
+                            - np.outer(c - C, c - C))
+                   for m, c, I in parts[r])
+        ax = np.asarray(plan.jnt_axis[i], float)
+        aa = np.outer(ax, ax)
+        K = np.array([[0.0, -ax[2], ax[1]], [ax[2], 0.0, -ax[0]],
+                      [-ax[1], ax[0], 0.0]])
+        j = act[r]
+        gear, lo, hi = ((float(plan.gear[j]), *map(float, plan.ctrlrange[j]))
+                        if j >= 0 else (0.0, 0.0, 0.0))
+        wm = [1.0 if (k == r or (k < r and mm[r, k]) or (k > r and mm[k, r]))
+              else 0.0 for k in range(nv)]
+        row = ([*pre[r][1].ravel(), *pre[r][0], *plan.jnt_pos[i], *ax,
+                *aa.ravel(), *(np.eye(3) - aa).ravel(), *K.ravel(),
+                float(plan.jnt_ref[i]), *C,
+                Iloc[0, 0], Iloc[1, 1], Iloc[2, 2], Iloc[0, 1], Iloc[0, 2],
+                Iloc[1, 2], M, float(plan.armature[r]) + h
+                * float(plan.damping[r]), float(plan.damping[r]), gear, lo,
+                hi, *anc[r].astype(float), *pad, *anc[:, r].astype(float),
+                *pad, *wm, *pad, *sm[r].astype(float), *pad])
+        rows.append(row)
+    off, width = _team_offsets(nr)
+    for r in range(nv, nr):                       # the inert roles
+        row = [0.0] * width
+        row[off["ADIAG"]] = row[off["WM"] + r] = row[off["WS"] + r] = 1.0
+        rows.append(row)
+    depth = [0] * nv
+    for r in range(nv):
+        depth[r] = 0 if prole[r] < 0 else depth[prole[r]] + 1
+    rounds = max(1, int(math.ceil(math.log2(max(depth) + 1))))
+    jump, cur = [], list(prole)
+    for _ in range(rounds):
+        jump.append(tuple(cur) + (-1,) * (nr - nv))
+        cur = [cur[a] if a >= 0 else -1 for a in cur]
+    eqs = tuple((int(plan.eq_d1[e]), int(plan.eq_d2[e]),
+                 tuple(float(c) for c in plan.eq_poly[e]),
+                 float(plan.eq_q01[e]), float(plan.eq_q02[e]),
+                 float(plan.eq_kc[e, 0]),
+                 h * float(plan.eq_kc[e, 0]) + float(plan.eq_kc[e, 1]),
+                 h * (h * float(plan.eq_kc[e, 0]) + float(plan.eq_kc[e, 1])))
+                for e in range(len(plan.eq_d1)))
+    return TeamPlan(nr, np.asarray(rows), tuple(act) + (-1,) * (nr - nv),
+                    tuple(jump), eqs,
+                    tuple(float(o) for o in plan.org),
+                    tuple(-float(g) for g in plan.gravity), h)
+
+
+def team_depth(plan: ChainPlan) -> tuple:
+    """An estimate, counted by hand from the stages of
+    csrc/chain_rollout_open.cu and not derived from its code (unlike the
+    emitter's ``depth`` of the one-thread substep), of the team substep's
+    critical path: (arithmetic levels, exchange levels), a multiply-add one
+    level as nvcc contracts them, an exchange a shuffle or a shared-memory
+    round trip between __syncwarp()s. The path: the joint transform (12),
+    the pointer-jumping rounds (an exchange and 4 each), the motion axis
+    and the bias forces (27 + 3 masked sums over the roles, 3 exchanges),
+    the scaling (5, 1), the Cholesky factor (j + 5 and 2 exchanges for
+    column j), both substitutions (3 and 1 per role, the transpose 1) and
+    Euler (3), over the plan's roles (its dofs padded to a whole team). A
+    floor for this design, not for the function."""
+    tp = team_plan(plan)
+    n, rounds = tp.nroles, len(tp.jump)
+    arith = (12 + 4 * rounds + 27 + 3 * n + 5 + n * (n - 1) // 2 + 5 * n
+             + 6 * n + 3)
+    return arith, rounds + 3 + 1 + 2 * n + 2 * n + 1
+
+
+@functools.lru_cache(maxsize=None)
+def team_header(plan: ChainPlan) -> Generated:
+    """``chain_team.cuh``: the team rollout's per-role constants (field
+    offsets ``TC_<name>``, the table ``TEAM_C``, actuators, pointer-jumping
+    ancestors, equalities: ``TEAM_EQ_EACH(F)`` expands F(e) for each) for
+    csrc/chain_rollout_open.cu: ``TEAM_NR`` roles, the first ``TEAM_NV``
+    real."""
+    tp = team_plan(plan)
+    nr = tp.nroles
+    offs, off = _team_offsets(nr)
+    defs = [f"#define TC_{name} {o}" for name, o in offs.items()]
+    if off != tp.rows.shape[1]:
+        raise AssertionError("team constants out of step with _team_fields")
+    lit = lambda x: _lit(float(x))                           # noqa: E731
+    table = ",\n".join("  {" + ", ".join(lit(x) for x in row) + "}"
+                       for row in tp.rows)
+    eqs = []
+    for e, (d1, d2, pc, q01, q02, k, hkc, w) in enumerate(tp.eqs):
+        eqs += [f"#define TEAM_EQ{e}_D1 {d1}", f"#define TEAM_EQ{e}_D2 {d2}",
+                f"__device__ const float TEAM_EQ{e}_F[10] = {{"
+                + ", ".join(lit(x) for x in (*pc, q01, q02, k, hkc, w))
+                + "};"]
+    each = " ".join(f"F({e})" for e in range(len(tp.eqs)))
+    text = "\n".join([
+        "// Generated by mujoco_rl_ur5_tpu_torch/physics/cuda_chain.py",
+        "#pragma once",
+        f"#define TEAM_NR {nr}",
+        f"#define TEAM_NV {plan.nv}",
+        f"#define TEAM_NU {plan.nu}",
+        f"#define TEAM_NC {off}",
+        f"#define TEAM_ROUNDS {len(tp.jump)}",
+        f"#define TEAM_H {lit(tp.h)}",
+        *defs,
+        f"__device__ const float TEAM_C[{nr}][{off}] = {{", table, "};",
+        f"__device__ const int TEAM_ACT[{nr}] = {{"
+        + ", ".join(map(str, tp.act)) + "};",
+        f"__device__ const int TEAM_JUMP[{len(tp.jump)}][{nr}] = {{"
+        + ", ".join("{" + ", ".join(map(str, j)) + "}" for j in tp.jump)
+        + "};",
+        "__device__ const float TEAM_ORG[3] = {"
+        + ", ".join(map(lit, tp.org)) + "};",
+        "__device__ const float TEAM_A0[3] = {"
+        + ", ".join(map(lit, tp.a0)) + "};",
+        *eqs,
+        f"#define TEAM_EQ_EACH(F) {each}",
+        ""])
+    return Generated(text, {})
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _NALPHA = 8          # alphas rollout_closed takes as launch arguments
 
@@ -628,7 +881,7 @@ _NALPHA = 8          # alphas rollout_closed takes as launch arguments
 def _open_src(plan: ChainPlan) -> _build.KernelSource:
     return _build.KernelSource(
         "chain_rollout_open", "rollout_open", (_P, _P, _P, _I, _I, _I, _P),
-        {"chain_substep.cuh": substep_header(plan).text})
+        {"chain_team.cuh": team_header(plan).text})
 
 
 @functools.lru_cache(maxsize=None)
@@ -724,18 +977,42 @@ def rollout_open_plain(plan: ChainPlan, substeps: int, x0: torch.Tensor,
     return torch.stack(xs, 1)
 
 
+def check_open_inputs(plan: ChainPlan, x0, us) -> tuple:
+    """Raise unless the open-loop rollout's inputs are what its kernel
+    reads: float32, contiguous, x0 (B, nx) 16-byte aligned (the chain
+    kernels' common contract; torch's own allocations are), us (B, H, nu),
+    B >= 1. Returns (B, H)."""
+    nx, nu = 2 * plan.nv, plan.nu
+    B, H = (us.shape[0], us.shape[1]) if us.dim() == 3 else (0, 0)
+    for name, t, shape in (("x0", x0, (B, nx)), ("us", us, (B, H, nu))):
+        if us.dim() != 3 or tuple(t.shape) != shape:
+            raise ValueError(f"rollout_open: {name} is {tuple(t.shape)}, "
+                             f"the kernel takes {shape} with us (B, H, {nu})")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"rollout_open: {name} must be contiguous "
+                             f"float32, got {t.dtype} with strides "
+                             f"{t.stride()}")
+    if x0.data_ptr() % 16:
+        raise ValueError("rollout_open: x0 is not 16-byte aligned")
+    if B < 1:
+        raise ValueError(f"rollout_open: B={B} scenarios")
+    return B, H
+
+
 def rollout_open(plan: ChainPlan, substeps: int, x0: torch.Tensor,
                  us: torch.Tensor) -> torch.Tensor:
-    """Open-loop rollout: x0 (B, nx), us (B, H, nu) -> xs (B, H+1, nx)."""
+    """Open-loop rollout: x0 (B, nx), us (B, H, nu) -> xs (B, H+1, nx).
+    On CUDA tensors one launch, OPEN_TEAM lanes per scenario (any plan:
+    ``team_plan`` pads its dofs to a whole team), reads and writes these
+    tensors as they are (``check_open_inputs``)."""
     if not _route(x0, us):
         return rollout_open_plain(plan, substeps, x0, us)
-    B, H = us.shape[0], us.shape[1]
-    x0t, ust = _bfast(x0), _bfast(us)
-    xs = torch.empty(H + 1, 2 * plan.nv, B, device=x0.device)
-    _build.call(_open_src(plan), x0t.data_ptr(), ust.data_ptr(),
+    B, H = check_open_inputs(plan, x0, us)
+    xs = torch.empty(B, H + 1, 2 * plan.nv, device=x0.device)
+    _build.call(_open_src(plan), x0.data_ptr(), us.data_ptr(),
                 xs.data_ptr(), B, H, substeps, _stream(x0))
     rollout_open.launches += 1
-    return _bslow(xs)
+    return xs
 
 
 rollout_open.launches = 0

@@ -16,10 +16,13 @@ Each takes the scenario batch at once: per-geom collision poses pos
 tables with each geom's row in them), and each pair's geom ids g1, g2
 (B, n) as the broadphase selected them, all in one argument order
 ``(pos, quat, size, hulls, g1, g2)``; ``BATCHED`` maps each group's type
-pair to its wrapper, and ``<wrapper>.plain`` is its plain version. One thread computes one (pair,
-scenario) and reads the poses and the small hull tables by id, where the
-TPU kernel was handed per-pair copies of every table (the JAX package
-gathers (B, 64, 32, 3) vertex tables per capped group). Each returns pos
+pair to its wrapper, and ``<wrapper>.plain`` is its plain version. One
+thread computes one (pair, scenario) and reads the poses and the small hull
+tables by id, where the TPU kernel was handed per-pair copies of every
+table (the JAX package gathers (B, 64, 32, 3) vertex tables per capped
+group); the hull-hull kernel gives each (pair, scenario) a team of
+``HULL_TEAM`` lanes, stages the table in shared memory and loops over each
+row's real vertices and faces (``Hulls.nvert``/``nface``). Each returns pos
 (B, n, K, 3), normal (B, n, K, 3) and dist (B, n, K), K = 9 for box-box,
 8 for hull-hull, box-hull and plane-hull, 1 for sphere-hull and 5 for
 capsule-hull, with physics/collision.py's arithmetic, operation
@@ -48,18 +51,32 @@ from mujoco_rl_ur5_tpu_torch import _build
 from mujoco_rl_ur5_tpu_torch.physics import collision
 from mujoco_rl_ur5_tpu_torch.physics.cuda_chain import _route, _stream
 
+_SMEM_BLOCK = 232448  # shared memory one block may use (H100, bytes)
 KERNELS = ("box_box", "hull_hull", "box_hull", "plane_hull", "sphere_hull",
            "capsule_hull")
 
 
 class Hulls(NamedTuple):
-    """The model's hull tables and each geom's row in them."""
+    """The model's hull tables and each geom's row in them. Each row keeps
+    its real vertices and faces first (scene/compile.py lays the tables out
+    so); ``nvert`` and ``nface`` are their counts (``hull_counts``), which
+    the hull-hull kernel loops over and takes as given."""
 
     meshid: torch.Tensor   # (G,) int, -1 for a geom that is no hull
     verts: torch.Tensor    # (M, V, 3)
     vmask: torch.Tensor    # (M, V)
     fnorm: torch.Tensor    # (M, F, 3)
     fdist: torch.Tensor    # (M, F)
+    nvert: torch.Tensor = None   # (M,) int32
+    nface: torch.Tensor = None   # (M,) int32
+
+
+def hull_counts(vmask: torch.Tensor, fdist: torch.Tensor) -> tuple:
+    """Each table row's real vertex and face counts (vmask > 0.5, fdist <
+    1e9) as int32 tensors on the tables' device: two reductions there, no
+    host sync."""
+    return ((vmask > 0.5).sum(-1, dtype=torch.int32),
+            (fdist < 1e9).sum(-1, dtype=torch.int32))
 
 
 # -- plain versions ---------------------------------------------------------------
@@ -116,6 +133,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pos, quat, size, meshid, verts, vmask, fnorm, fdist, g1, g2,
 # out_pos, out_nrm, out_dist, B, n, G, V, F, stream
 _ARGS = (_P,) * 13 + (_I,) * 5 + (_P,)
+# hull_hull: pos, quat, meshid, verts, fnorm, fdist, nvert, nface, g1, g2,
+# out_pos, out_nrm, out_dist, B, n, G, M, V, F, stream
+_HH_ARGS = (_P,) * 13 + (_I,) * 6 + (_P,)
+HULL_TEAM = 4   # lanes per (pair, scenario) of csrc/collide_hull_hull.cu
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,13 +146,35 @@ def source(kernel: str) -> _build.KernelSource:
     multiply-adds so that it rounds as its plain version does."""
     with open(os.path.join(_build.CSRC, "collide_common.cuh")) as f:
         common = f.read()
-    return _build.KernelSource(f"collide_{kernel}", f"collide_{kernel}",
-                               _ARGS, {"collide_common.cuh": common},
-                               flags=("-fmad=false",))
+    return _build.KernelSource(
+        f"collide_{kernel}", f"collide_{kernel}",
+        _HH_ARGS if kernel == "hull_hull" else _ARGS,
+        {"collide_common.cuh": common}, flags=("-fmad=false",))
 
 
 def kernel_sources() -> list:
     return [source(k) for k in KERNELS]
+
+
+def _poses(kernel: str, pos, quat):
+    B, G = pos.shape[0], pos.shape[1]
+    pos, quat = pos.contiguous(), quat.contiguous()
+    if pos.shape != (B, G, 3) or quat.shape != (B, G, 4):
+        raise ValueError(f"{kernel}: pos (B, G, 3) and quat (B, G, 4) "
+                         f"expected, got {tuple(pos.shape)}, "
+                         f"{tuple(quat.shape)}")
+    return pos, quat
+
+
+def _ids(g1, g2, B: int, n: int, dev):
+    return [g.expand(B, n).to(device=dev, dtype=torch.int32).contiguous()
+            for g in (g1, g2)]
+
+
+def _outputs(B: int, n: int, K: int, dev):
+    return (torch.empty(B, n, K, 3, device=dev),
+            torch.empty(B, n, K, 3, device=dev), torch.empty(B, n, K,
+                                                             device=dev))
 
 
 def _launch(wrapper, kernel: str, K: int, pos, quat, size, hulls, g1, g2):
@@ -141,15 +184,12 @@ def _launch(wrapper, kernel: str, K: int, pos, quat, size, hulls, g1, g2):
     B, G = pos.shape[0], pos.shape[1]
     n = g1.shape[-1]
     dev = pos.device
-    pos, quat = pos.contiguous(), quat.contiguous()
+    pos, quat = _poses(kernel, pos, quat)
     size = size.contiguous()
-    if pos.shape != (B, G, 3) or quat.shape != (B, G, 4) \
-            or size.shape != (G, 3):
-        raise ValueError(f"{kernel}: pos (B, G, 3), quat (B, G, 4) and size "
-                         f"(G, 3) expected, got {tuple(pos.shape)}, "
-                         f"{tuple(quat.shape)}, {tuple(size.shape)}")
-    ids = [g.expand(B, n).to(device=dev, dtype=torch.int32).contiguous()
-           for g in (g1, g2)]
+    if size.shape != (G, 3):
+        raise ValueError(f"{kernel}: size (G, 3) expected, got "
+                         f"{tuple(size.shape)}")
+    ids = _ids(g1, g2, B, n, dev)
     if hulls is None:
         z = torch.zeros(1, device=dev)
         tables = (torch.zeros(G, dtype=torch.int32, device=dev), z, z, z, z)
@@ -161,10 +201,9 @@ def _launch(wrapper, kernel: str, K: int, pos, quat, size, hulls, g1, g2):
             raise ValueError(f"{kernel}: hull tables need >= 8 vertices and "
                              "a mesh row per geom")
         tables = (hulls.meshid.to(device=dev, dtype=torch.int32).contiguous(),
-                  *(t.contiguous() for t in hulls[1:]))
-    out_pos = torch.empty(B, n, K, 3, device=dev)
-    out_nrm = torch.empty(B, n, K, 3, device=dev)
-    out_dist = torch.empty(B, n, K, device=dev)
+                  *(t.contiguous() for t in (hulls.verts, hulls.vmask,
+                                             hulls.fnorm, hulls.fdist)))
+    out_pos, out_nrm, out_dist = _outputs(B, n, K, dev)
     if B * n:
         _build.call(source(kernel), pos.data_ptr(), quat.data_ptr(),
                     size.data_ptr(), *(t.data_ptr() for t in tables),
@@ -172,6 +211,56 @@ def _launch(wrapper, kernel: str, K: int, pos, quat, size, hulls, g1, g2):
                     out_nrm.data_ptr(), out_dist.data_ptr(), B, n, G, V, F,
                     _stream(pos))
         wrapper.launches += 1
+    return out_pos, out_nrm, out_dist
+
+
+def hull_hull_smem(M: int, V: int, F: int) -> int:
+    """Shared memory (bytes) one hull-hull block takes for tables of M rows
+    of V vertices and F faces: its 128 / HULL_TEAM instances' world
+    vertices (2 V + 1 rows of 16 bytes each) and the staged table (csrc
+    collide_hull_hull.cu smem_bytes)."""
+    return (128 // HULL_TEAM * (2 * V + 1) * 4 + M * V * 3 + M * F * 4
+            + 2 * M) * 4
+
+
+def hull_hull_launch(pos, quat, hulls: Hulls, g1, g2):
+    """One csrc/collide_hull_hull.cu launch, counted in
+    ``hull_hull_batched.launches``. The kernel loops over each row's real
+    vertices and faces, ``hulls.nvert``/``hulls.nface`` (raises without
+    them), and stages the whole table in one block's shared memory: raises
+    where it does not fit."""
+    B, G = pos.shape[0], pos.shape[1]
+    n = g1.shape[-1]
+    dev = pos.device
+    pos, quat = _poses("hull_hull", pos, quat)
+    _route(hulls.verts, hulls.vmask, hulls.fnorm, hulls.fdist)
+    M, V, F = hulls.verts.shape[0], hulls.verts.shape[1], hulls.fnorm.shape[1]
+    if V < 8 or hulls.meshid.shape != (G,):
+        raise ValueError("hull_hull: hull tables need >= 8 vertices and a "
+                         "mesh row per geom")
+    if hulls.nvert is None or hulls.nface is None:
+        raise ValueError("hull_hull: the kernel takes each row's real vertex "
+                         "and face counts (Hulls.nvert, Hulls.nface)")
+    need = hull_hull_smem(M, V, F)
+    if need > _SMEM_BLOCK:
+        raise ValueError(f"hull_hull: tables of {M} rows x {V} vertices x "
+                         f"{F} faces need {need} bytes of shared memory, a "
+                         f"block has {_SMEM_BLOCK}")
+    meshid = hulls.meshid.to(device=dev, dtype=torch.int32).contiguous()
+    verts, fnorm, fdist = (t.contiguous() for t in (hulls.verts, hulls.fnorm,
+                                                    hulls.fdist))
+    counts = [c.to(device=dev, dtype=torch.int32).contiguous()
+              for c in (hulls.nvert, hulls.nface)]
+    ids = _ids(g1, g2, B, n, dev)
+    out_pos, out_nrm, out_dist = _outputs(B, n, 8, dev)
+    if B * n:
+        _build.call(source("hull_hull"), pos.data_ptr(), quat.data_ptr(), meshid.data_ptr(),
+                    verts.data_ptr(), fnorm.data_ptr(), fdist.data_ptr(),
+                    counts[0].data_ptr(), counts[1].data_ptr(),
+                    ids[0].data_ptr(), ids[1].data_ptr(), out_pos.data_ptr(),
+                    out_nrm.data_ptr(), out_dist.data_ptr(), B, n, G, M, V, F,
+                    _stream(pos))
+        hull_hull_batched.launches += 1
     return out_pos, out_nrm, out_dist
 
 
@@ -183,6 +272,8 @@ def _wrapper(kernel: str, K: int, plain, doc: str):
     def batched(pos, quat, size, hulls, g1, g2):
         if not _route(pos, quat, size):
             return plain(pos, quat, size, hulls, g1, g2)
+        if kernel == "hull_hull":
+            return hull_hull_launch(pos, quat, hulls, g1, g2)
         return _launch(batched, kernel, K, pos, quat, size,
                        hulls if tables else None, g1, g2)
     batched.__name__ = batched.__qualname__ = f"{kernel}_batched"

@@ -123,4 +123,8 @@ def test_kernel_sources_are_in_the_package():
     assert len({s.key for s in srcs}) == len(cc.KERNELS) == 6
     for s in srcs:
         assert "collide_common.cuh" in s.headers
-        assert f"COLLIDE_ENTRY({s.entry[len('collide_'):]})" in s.text
+        k = s.entry[len("collide_"):]
+        # hull-hull has its own entry: real counts, the table in shared
+        # memory, a grid-stride launch
+        assert (f'extern "C" int {s.entry}(' if k == "hull_hull"
+                else f"COLLIDE_ENTRY({k})") in s.text

@@ -6,18 +6,21 @@ sources (csrc/*.cu) compile with g++ against a stand-in ``cuda_runtime.h``
 a time; ``__syncthreads`` and ``__syncwarp`` are one barrier over the
 block (stronger than the card's, which the kernels never need weaker);
 ``__ballot_sync`` is a vote over each warp's 32 threads between two
-barriers, so every thread of the block must reach it together, as the
-kernels call it; ``__shared__`` variables are static (one block runs at a
-time) and the dynamic shared memory is one static array, filled with NaN
-before each block; ``cp.async`` copies complete at once. A launch
+barriers, and the shuffles (``__shfl_sync``, ``__shfl_xor_sync``,
+``__shfl_down_sync`` on 32-bit values, with a width) post and read
+between two barriers likewise, so every thread of the block must reach
+them together, as the kernels call them; ``__shared__`` variables are
+static (one block runs at a time) and the dynamic shared memory is one
+static array, filled with NaN before each block; ``cp.async`` copies complete at once. A launch
 ``kernel<<<grid, threads, ...>>>(args)`` (or the collide kernels'
 ``COLLIDE_LAUNCH``) becomes ``shim_launch``. ``host_build`` compiles one
 build unit and returns its C entry point with the wrapper's ctypes
 signature; g++ does not contract multiply-adds (-ffp-contract=off), as the
 kernels built with -fmad=false do not on the card.
 
-tests/test_torch_isolation.py and tests/test_torch_team_kernels.py run the
-kernels through it; the test below checks the shim's warp vote.
+tests/test_torch_isolation.py, tests/test_torch_team_kernels.py and
+tests/test_torch_hull_hull.py run the kernels through it; the tests below
+check the shim's warp vote and its shuffles against their definitions.
 """
 
 import ctypes
@@ -41,6 +44,7 @@ SHIM = """#pragma once
 #include <vector>
 using std::min;
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
@@ -79,6 +83,46 @@ inline unsigned __ballot_sync(unsigned, int pred) {
     m |= shim_vote[w0 + l] ? 1u << l : 0u;
   shim_bar->arrive_and_wait();
   return m;
+}
+static unsigned shim_lanes[1024];
+// a warp shuffle: every thread of the block posts its value, then reads the
+// one of thread ``src`` (its own where src lies outside the block)
+template <class V> V shim_shfl(V v, unsigned src) {
+  static_assert(sizeof(V) == 4, "32-bit shuffles");
+  unsigned u;
+  std::memcpy(&u, &v, 4);
+  shim_lanes[threadIdx.x] = u;
+  shim_bar->arrive_and_wait();
+  const unsigned r = shim_lanes[src < blockDim.x ? src : threadIdx.x];
+  shim_bar->arrive_and_wait();
+  V out;
+  std::memcpy(&out, &r, 4);
+  return out;
+}
+template <class V> V __shfl_sync(unsigned, V v, int src, int width = 32) {
+  const unsigned base = threadIdx.x & ~(unsigned)(width - 1);
+  return shim_shfl(v, base + ((unsigned)src & (unsigned)(width - 1)));
+}
+template <class V> V __shfl_xor_sync(unsigned, V v, int mask, int width = 32) {
+  // the warp lane ^ mask; a lane of a later group of ``width`` gives the
+  // caller its own value
+  const unsigned wl = threadIdx.x & 31u, warp = threadIdx.x & ~31u;
+  const unsigned to = (wl ^ (unsigned)mask) & 31u;
+  const unsigned end = (wl & ~(unsigned)(width - 1)) + (unsigned)width;
+  return shim_shfl(v, to < end ? warp + to : threadIdx.x);
+}
+template <class V> V __shfl_down_sync(unsigned, V v, unsigned d,
+                                      int width = 32) {
+  const unsigned lane = threadIdx.x & (unsigned)(width - 1);
+  const unsigned base = threadIdx.x & ~(unsigned)(width - 1);
+  return shim_shfl(v, lane + d < (unsigned)width ? base + lane + d
+                                                 : threadIdx.x);
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+static inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+static inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 2;                               // a grid-stride loop runs twice
+  return 0;
 }
 alignas(16) static float4 smem4[65536];
 inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) {
@@ -173,3 +217,74 @@ def test_shim_warp_vote_compacts_in_order(tmp_path, threads):
     want = np.nonzero(flag[:n])[0]
     assert total[0] == len(want) > 10
     np.testing.assert_array_equal(out[:len(want)], want)
+
+
+_SHUFFLE = """#include <cuda_runtime.h>
+// per thread, for each width: shfl from lane (3 t + 5), xor with 1, 2 and
+// the width's half, down by 1 and 3, on an int and on a float
+__global__ void shuffle_kernel(int* out, float* fout, const int* widths,
+                               int nw) {
+  const int t = threadIdx.x;
+  const int v = 1000 + 7 * t;
+  int k = 0;
+  for (int i = 0; i < nw; ++i) {
+    const int w = widths[i];
+    out[(k++) * blockDim.x + t] = __shfl_sync(0xffffffffu, v, 3 * t + 5, w);
+    out[(k++) * blockDim.x + t] = __shfl_xor_sync(0xffffffffu, v, 1, w);
+    out[(k++) * blockDim.x + t] = __shfl_xor_sync(0xffffffffu, v, 2, w);
+    out[(k++) * blockDim.x + t] = __shfl_xor_sync(0xffffffffu, v, w / 2, w);
+    out[(k++) * blockDim.x + t] = __shfl_down_sync(0xffffffffu, v, 1u, w);
+    out[(k++) * blockDim.x + t] = __shfl_down_sync(0xffffffffu, v, 3u, w);
+    fout[i * blockDim.x + t] =
+        __shfl_xor_sync(0xffffffffu, 0.5f * (float)v, 1, w);
+  }
+}
+extern "C" int shuffle(int* out, float* fout, const int* widths, int nw,
+                       int threads) {
+  shuffle_kernel<<<1, threads, 0, nullptr>>>(out, fout, widths, nw);
+  return 0;
+}
+"""
+
+
+def _shfl_want(v, src, width):
+    """CUDA's definition: within each group of ``width`` lanes of a warp,
+    the value of lane ``src`` (per thread; taken modulo the width)."""
+    t = np.arange(len(v))
+    return v[(t & ~(width - 1)) + (src & (width - 1))]
+
+
+def _xor_want(v, mask, width):
+    t = np.arange(len(v))
+    wl, warp = t & 31, t & ~31
+    to = (wl ^ mask) & 31
+    end = (wl & ~(width - 1)) + width
+    return np.where(to < end, v[warp + to], v)
+
+
+def _down_want(v, d, width):
+    t = np.arange(len(v))
+    lane = t & (width - 1)
+    return np.where(lane + d < width, v[np.minimum(t + d, len(v) - 1)], v)
+
+
+def test_shim_shuffles_follow_their_definition(tmp_path):
+    P = ctypes.c_void_p
+    fn = host_build(types.SimpleNamespace(
+        name="shuffle", text=_SHUFFLE, headers={}, entry="shuffle",
+        argtypes=(P, P, P, ctypes.c_int, ctypes.c_int)), tmp_path)
+    threads, widths = 64, np.array([32, 16, 8, 4, 2], np.int32)
+    out = np.zeros((6 * len(widths), threads), np.int32)
+    fout = np.zeros((len(widths), threads), np.float32)
+    assert fn(out.ctypes.data, fout.ctypes.data, widths.ctypes.data,
+              len(widths), threads) == 0
+    t = np.arange(threads)
+    v = 1000 + 7 * t
+    for i, w in enumerate(widths.tolist()):
+        want = [_shfl_want(v, 3 * t + 5, w), _xor_want(v, 1, w),
+                _xor_want(v, 2, w), _xor_want(v, w // 2, w),
+                _down_want(v, 1, w), _down_want(v, 3, w)]
+        for j, x in enumerate(want):
+            np.testing.assert_array_equal(out[6 * i + j], x,
+                                          err_msg=f"width {w}, case {j}")
+        np.testing.assert_array_equal(fout[i], 0.5 * _xor_want(v, 1, w))

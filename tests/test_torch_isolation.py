@@ -270,9 +270,18 @@ def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
     K = {"box_box": 9, "sphere_hull": 1, "capsule_hull": 5}.get(kernel, 8)
     outs = [torch.empty(B, n, K, 3), torch.empty(B, n, K, 3),
             torch.empty(B, n, K)]
-    keep = [pos, quat, size, hulls.meshid.to(torch.int32), *hulls[1:],
-            g1.to(torch.int32), g2.to(torch.int32), *outs]
-    assert fn(*(x.data_ptr() for x in keep), B, n, G, V, F, None) == 0
+    ids = [g1.to(torch.int32), g2.to(torch.int32)]
+    if kernel == "hull_hull":       # real counts, the table staged: no size
+        keep = [pos, quat, hulls.meshid.to(torch.int32), hulls.verts,
+                hulls.fnorm, hulls.fdist,
+                *cuda_collide.hull_counts(hulls.vmask, hulls.fdist), *ids,
+                *outs]
+        assert fn(*(x.data_ptr() for x in keep), B, n, G, 2, V, F,
+                  None) == 0
+    else:
+        keep = [pos, quat, size, hulls.meshid.to(torch.int32), *hulls[1:5],
+                *ids, *outs]
+        assert fn(*(x.data_ptr() for x in keep), B, n, G, V, F, None) == 0
     want = getattr(cuda_collide, f"{kernel}_batched").plain(
         pos, quat, size, hulls, g1, g2)
     act = want[2] < 1.0

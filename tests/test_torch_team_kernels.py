@@ -287,3 +287,146 @@ def test_rollout_closed_input_check_counts_alphas(mpc):
         cc.check_closed_inputs(mpc.plan, *args, (1.0,) * 9, *refs["track"])
     with pytest.raises(ValueError, match="alphas"):
         cc.check_closed_inputs(mpc.plan, *args, (), *refs["track"])
+
+
+def test_rollout_open_kernel_source_runs_on_the_host(mpc, tmp_path):
+    """The open-loop rollout in the public layout, a team of 8 lanes per
+    scenario, against float64 by phase 3's rule at a ragged batch (37: no
+    multiple of a block's 16 scenarios)."""
+    fn = host_build(cc._open_src(mpc.plan), tmp_path)
+    B, H, S = 37, mpc.H, mpc.substeps
+    rng = np.random.default_rng(8)
+    x0 = _t(np.concatenate([HOME + 0.05 * rng.standard_normal((B, 8)),
+                            0.3 * rng.standard_normal((B, 8))], -1))
+    us = _t(0.5 * rng.standard_normal((B, H, 7)))
+    assert cc.check_open_inputs(mpc.plan, x0, us) == (B, H)
+    xs = torch.full((B, H + 1, 16), float("nan"))
+    assert fn(x0.data_ptr(), us.data_ptr(), xs.data_ptr(), B, H, S,
+              None) == 0
+    _hold((xs,), (cc.rollout_open_plain(mpc.plan, S, x0, us),),
+          (cc.rollout_open_plain(mpc.plan, S, x0.double(), us.double()),))
+
+
+def _chain_xml(n: int) -> str:
+    """A hinge chain of n links (axes z, y, x in turn; a body without a
+    joint after link n // 2, which the team plan merges into its parent)
+    ending in two fingers coupled by a joint equality; every joint but j1
+    actuated (j1's role has no control): nv = n + 2."""
+    axes = ("0 0 1", "0 1 0", "1 0 0")
+    opened, closed = [], []
+    for i in range(n):
+        m = 3.0 / (i + 1)
+        opened.append(
+            f'<body name="l{i}" pos="0 {0.02 * (i % 2)} {0.1 + 0.02 * i}" '
+            f'euler="{0.1 * i} 0 {0.2 * i}"><joint name="j{i}" '
+            f'axis="{axes[i % 3]}"/><inertial pos="0 0 0.05" mass="{m:g}" '
+            f'diaginertia="{0.01 * m:g} {0.012 * m:g} {0.008 * m:g}"/>')
+        closed.append("</body>")
+        if i == n // 2:
+            opened.append('<body name="fixed" pos="0 0 0.05"><inertial '
+                          'pos="0.01 0 0" mass="0.3" diaginertia="1e-3 1e-3 '
+                          '1e-3"/>')
+            closed.append("</body>")
+    fingers = "".join(
+        f'<body name="f{s}" pos="0.03 {y} 0"><joint name="f{s}" axis="0 0 1"'
+        f' damping="0.1" armature="0"/><inertial pos="0.01 0 0" '
+        f'mass="0.03" diaginertia="2e-6 1.5e-6 1e-6"/></body>'
+        for s, y in (("a", 0.01), ("b", -0.01)))
+    motors = "".join(f'<motor joint="j{i}" gear="50" ctrlrange="-1 1"/>'
+                     for i in range(n) if i != 1)
+    return f"""<mujoco model="chain">
+  <compiler angle="radian" inertiafromgeom="false"/>
+  <option timestep="0.002" gravity="0 0 -9.81"/>
+  <default><joint damping="0.5" armature="0.01"/>
+    <motor ctrllimited="true"/></default>
+  <worldbody><geom name="floor" type="plane" size="1 1 0.1"/>
+    <body name="base" pos="0 0 0.5"><inertial pos="0 0 0" mass="2"
+      diaginertia="0.01 0.01 0.01"/>
+      {"".join(opened)}{fingers}{"".join(closed)}
+    </body></worldbody>
+  <equality><joint joint1="fb" joint2="fa" polycoef="0 1 0 0 0"
+    solref="0.005 1" solimp="0.95 0.99 0.001"/></equality>
+  <actuator>{motors}<motor joint="fa" gear="1" ctrlrange="-0.1 0.1"/>
+  </actuator>
+</mujoco>"""
+
+
+def _chain_plan(tmp_path, links: int):
+    from mujoco_rl_ur5_tpu_torch.physics.chain import make_chain_plan
+    from mujoco_rl_ur5_tpu_torch.scene.reduce import load_arm_model
+    path = tmp_path / "chain.xml"
+    path.write_text(_chain_xml(links))
+    return make_chain_plan(load_arm_model(str(path)))
+
+
+@pytest.mark.parametrize("links", [3, 9])
+def test_rollout_open_kernel_source_takes_other_chains(tmp_path, links):
+    """Any chain plan runs on the team kernel: nv = 5 (one lane's role each
+    and three inert ones) and nv = 11 (two roles per lane, five inert),
+    both with a merged body, an unactuated dof and a joint equality,
+    against float64 by phase 3's rule at a ragged batch."""
+    plan = _chain_plan(tmp_path, links)
+    nv, nu = plan.nv, plan.nu
+    assert (nv, nu) == (links + 2, links)
+    assert cc.team_plan(plan).nroles == -(-nv // cc.OPEN_TEAM) * cc.OPEN_TEAM
+    fn = host_build(cc._open_src(plan), tmp_path)
+    B, H, S = 37, 3, 2
+    rng = np.random.default_rng(links)
+    x0 = _t(np.concatenate([0.3 * rng.standard_normal((B, nv)),
+                            0.5 * rng.standard_normal((B, nv))], -1))
+    us = _t(0.8 * rng.standard_normal((B, H, nu)))
+    assert cc.check_open_inputs(plan, x0, us) == (B, H)
+    xs = torch.full((B, H + 1, 2 * nv), float("nan"))
+    assert fn(x0.data_ptr(), us.data_ptr(), xs.data_ptr(), B, H, S,
+              None) == 0
+    _hold((xs,), (cc.rollout_open_plain(plan, S, x0, us),),
+          (cc.rollout_open_plain(plan, S, x0.double(), us.double()),))
+
+
+def test_team_plan_pads_inert_roles(tmp_path):
+    """The inert roles of a padded plan: no actuator, no ancestor, a row
+    and column of the identity in the masks of the mass matrix and its
+    scaling, zeros in every sum over the roles."""
+    plan = _chain_plan(tmp_path, 3)
+    tp = cc.team_plan(plan)
+    nv, nr = plan.nv, tp.nroles
+    off, width = cc._team_offsets(nr)
+    assert (nr, tp.rows.shape) == (8, (8, width))
+    assert tp.act[nv:] == (-1,) * (nr - nv)
+    assert all(j[nv:] == (-1,) * (nr - nv) for j in tp.jump)
+    for name in ("WANC", "WSUB", "WM", "WS"):
+        w = tp.rows[:, off[name]:off[name] + nr]
+        want = np.eye(nr) if name in ("WM", "WS") else np.zeros((nr, nr))
+        np.testing.assert_array_equal(w[nv:], want[nv:], err_msg=name)
+        np.testing.assert_array_equal(w[:nv, nv:], 0.0, err_msg=name)
+    inert = tp.rows[nv:].copy()
+    inert[:, off["ADIAG"]] -= 1.0
+    for name in ("WM", "WS"):
+        inert[:, off[name] + nv:off[name] + nr] -= np.eye(nr - nv)
+    assert not inert.any()
+    header = cc.team_header(plan).text
+    assert f"#define TEAM_NR {nr}" in header
+    assert f"#define TEAM_NV {nv}" in header
+
+
+@pytest.mark.parametrize("which, how", [
+    (w, h) for w in ("x0", "us") for h in _HOWS] + [("x0", "unaligned")])
+def test_rollout_open_input_check_raises(mpc, which, how):
+    ins = {"x0": torch.zeros(3, 16), "us": torch.zeros(3, mpc.H, 7)}
+    ins[which] = _bad(ins[which], how)
+    with pytest.raises(ValueError, match="rollout_open"):
+        cc.check_open_inputs(mpc.plan, ins["x0"], ins["us"])
+
+
+def test_substep_header_text_is_unchanged(mpc):
+    """lin_fd and rollout_closed build on the generated substep
+    (chain_substep.cuh); tracking each value's depth in the emitter must
+    not change its text, which stays byte for byte the one those kernels
+    were measured with (its SHA-256 below). Its critical path: 140 levels."""
+    import hashlib
+    g = cc.substep_header(mpc.plan)
+    assert hashlib.sha256(g.text.encode()).hexdigest() == (
+        "637015756588c174b73e62ed1bb873bef020d377725f7255d39d30b84de7686f")
+    assert g.ops["substep"] == 4312 and g.ops["depth"] == 140
+    arith, exch = cc.team_depth(mpc.plan)
+    assert arith > g.ops["depth"] and exch == 3 + 3 + 1 + 4 * 8 + 1
