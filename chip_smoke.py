@@ -10,11 +10,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (five kernels; rollout_closed once with the track costs and once with
      the reach costs), the six collide kernels and the ray cast, one nvcc
      per source, in parallel, with the build time and ptxas's register,
-     stack and spill report (lqr_backward and hull_hull must spill
-     nothing), and the resident blocks per SM, threads and shared memory
-     per block of the six redesigned kernels (lqr_backward, rollout_closed,
-     lin_fd, rollout_open, hull_hull and the ray cast at the object pile's
-     table sizes);
+     stack and spill report (lqr_backward, hull_hull, box_hull and box_box
+     must spill nothing, the three collide kernels use no stack), and the
+     resident blocks per SM, threads and shared memory per block of the
+     eight redesigned kernels (lqr_backward, rollout_closed, lin_fd,
+     rollout_open, hull_hull, box_hull, box_box and the ray cast; the hull
+     kernels and the ray cast at the object pile's table sizes);
   3. kernels: each kernel's wrapper at the shapes the main paths give it
      (B=4096, H=64, substeps=8), held against its plain PyTorch version on
      the same inputs on the card, output by output, with the tolerance
@@ -31,8 +32,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      per scenario) is held at B=4096 and B=509, twice to the bit and timed
      on the device, beside the latency floors of the one-thread substep
      and (a hand-counted estimate) the team's. The redesigned kernels are
-     also held at a ragged batch (B=509; H=8 for rollout_closed, whose plain
-     version is launch-bound), called twice on the same inputs (equal to
+     also held at a ragged batch (B=509; H=8 for rollout_open and
+     rollout_closed, whose plain versions are launch-bound), called twice
+     on the same inputs (equal to
      the bit), timed on the device under torch.profiler and printed beside
      their earlier times;
   4. main paths at B=4096, H=64, substeps=8, iters=6, each with every launch
@@ -60,7 +62,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      pile, which must agree to the bit; the four narrowphase kernels
      (box_box, hull_hull, box_hull, plane_hull) held against their plain
      versions at the shapes of the settled pile's step, timed beside their
-     plain versions and bounds; the step at iterations=100 and 30 (25
+     plain versions, bounds and (box_box, hull_hull, box_hull) the
+     one-thread kernels' times they replaced, with two planted faults which
+     the comparison must flag (box_box with the box sizes 0.1% small,
+     box_hull with the rows of the most faces, every prism, one face
+     short);
+     the step at iterations=100 and 30 (25
      steps per call from the seeded drop, as bench.py's bench_dynamics
      times them, median of 3 calls, which must end in the same state),
      every launch counter set to 0 before a call and read after (one
@@ -79,7 +86,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      their plain versions at the settled pile's shapes, timed beside their
      plain versions and bounds (hull_hull also once with a planted fault,
      the finger pad's face count one short, which the comparison must
-     flag); the step at iterations=100
+     flag; the pad meets no box, so box_hull's fault runs in phase 7); the
+     step at iterations=100
      (median of 3 calls of 25 steps from the seeded drop, one launch of
      each collide kernel per step, the calls equal to the bit); one step
      at B=64, iterations=30 against the CPU's plain path with phase 8's
@@ -270,6 +278,13 @@ def spill_bytes(report: list) -> int:
         r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln))
 
 
+def stack_bytes(report: list) -> int:
+    """Stack frame bytes in a ptxas report (``_build.ptxas_report``)."""
+    import re
+    return sum(int(a) for ln in report
+               for a in re.findall(r"(\d+) bytes stack frame", ln))
+
+
 def timed_ms(fn, reps: int = 3) -> float:
     """Median wall time of ``fn`` (synchronised) over ``reps`` runs, in ms."""
     walls = []
@@ -397,22 +412,27 @@ def collide_flops(kernel: str, V: int, F: int, team: int = 1) -> tuple:
     a face to world 20 and its separation and comparison 2; per (face,
     vertex) pair one dot and one min 6; per vertex of the deepest-vertex
     pass a dot, a subtraction and a comparison 7; an output point 7; a box
-    corner tested against a box 59; a SAT axis 60 (a cross axis 78). The
-    deepest-vertex pass of hull-hull and box-hull runs on the side whose
-    face lost, which the data decide: it is counted on the smaller side.
-    The box-hull and plane-hull kernels move every vertex to world again
-    for each face and each output slot (24 and 25 per vertex), which keeps
-    their registers few. The hull-hull kernel moves each vertex and face to
-    world once and loops over the real ones only, but each of its ``team``
-    lanes forms both poses, the team reduces its faces' maxima (3 per
-    step), the winning face moves to world once more, and the deepest pass
-    ranks at least 8 vertices against each other (3 per pair). A sphere
-    probe scores a center against a face 7 and writes a contact 12; a
-    capsule's hull centre is a masked sum 24 per vertex, its five probe
-    centres 48. Call it with the hulls' real vertex and face counts for
-    what the function needs, with the padded ones for what the kernels
-    other than hull-hull execute."""
+    corner tested against a box 59; a SAT axis 60 (a cross axis 78); the
+    edge contact and the box-box outputs 216. The deepest-vertex pass of
+    hull-hull and box-hull runs on the side whose face lost, which the data
+    decide: it is counted on the smaller side. The plane-hull kernel moves
+    every vertex to world again for each output slot (25 per vertex), which
+    keeps its registers few. The team kernels (``team`` lanes per instance)
+    move each vertex and face to world once, loop over the real ones only
+    and compute each SAT axis once, but every lane forms both poses, the
+    team reduces its faces' or axes' extrema (3 per step and lane), and
+    ranks replace the top-k: the deepest pass of hull-hull and box-hull
+    ranks at least 8 vertices against each other as 64-bit keys (a key 4
+    per lane and vertex, a comparison 3 per pair; box-hull's counted on the
+    box), box-box ranks each way's 8 corners (3 per pair), and the winning
+    face moves to world once more (20). A sphere probe
+    scores a center against a face 7 and writes a contact 12; a capsule's
+    hull centre is a masked sum 24 per vertex, its five probe centres 48.
+    Call it with the hulls' real vertex and face counts for what the
+    function needs and what the team kernels execute, with the padded ones
+    for what the one-thread hull kernels execute."""
     pose = 2 * 36
+    steps = 3 * (team.bit_length() - 1)     # one team reduction, per lane
     if kernel == "sphere_hull":
         n = 36 + F * (20 + 7) + 12
         return n, n + 36
@@ -420,8 +440,9 @@ def collide_flops(kernel: str, V: int, F: int, team: int = 1) -> tuple:
         n = pose + V * 24 + 4 + 48 + F * (20 + 5 * 7) + 5 * 12
         return n, n
     if kernel == "box_box":
-        n = pose + (16 + 8) * 59 + 6 * 60 + 9 * 78 + 9 * 24
-        return n, n
+        n = pose + 16 * 59 + 6 * 60 + 9 * 78 + 216
+        return n, (team * pose + 16 * 59 + 2 * 8 * 8 * 3 + 6 * 60 + 9 * 78
+                   + team * steps + 216)
     if kernel == "plane_hull":
         return (pose + 5 + V * 25 + 8 * 7, pose + 5 + V * 25 + 8 * 25)
     if kernel == "hull_hull":
@@ -429,11 +450,14 @@ def collide_flops(kernel: str, V: int, F: int, team: int = 1) -> tuple:
         return (pose + 2 * V * 18 + 2 * F * 22 + 2 * F * V * 6 + V * 7
                 + 8 * 7,
                 team * pose + 2 * Vx * 18 + 2 * F * 22 + 20
-                + 2 * F * V * 6 + 2 * 3 * (team.bit_length() - 1) + Vx * 7
+                + 2 * F * V * 6 + 2 * steps + Vx * 7 + team * Vx * 4
                 + Vx * Vx * 3 + 8 * 7)
-    return (pose + (8 + V) * 18 + (6 + F) * 22 + (8 * F + 6 * V) * 6 + 8 * 7
-            + 8 * 7,
-            pose + F * (22 + 8 * 24) + 6 * (22 + V * 24) + 8 * 25 + 8 * 25)
+    # box-hull: the box's 8 vertices and 6 faces against the hull's V, F
+    n = (pose + (8 + V) * 18 + (6 + F) * 22 + (8 * F + 6 * V) * 6 + 8 * 7
+         + 8 * 7)
+    return n, (team * pose + (8 + max(V, 8)) * 18 + (6 + F) * 22 + 20
+               + (8 * F + 6 * V) * 6 + 2 * steps + 8 * 7 + team * 8 * 4
+               + 8 * 8 * 3 + 8 * 7)
 
 
 def drop_state(model, batch: int, seed: int):
@@ -588,14 +612,23 @@ def collide_diff(got, want) -> tuple:
     return int(bad_slot.any(-1).sum()), live, max_err
 
 
-def collide_rows(log, model, state, fault=False) -> dict:
+# the one-thread kernels that the team kernels replaced: ms per call (device
+# ms) on the box pile and on the object pile (PERF.md section 6)
+ONE_THREAD = {"box_box": ((0.331, 0.316), (0.331, 0.317)),
+              "hull_hull": ((2.313, 2.292), (2.681, 2.665)),
+              "box_hull": ((0.646, 0.626), (0.467, 0.454))}
+
+
+def collide_rows(log, model, state, faults=()) -> dict:
     """Each collide kernel of the model's groups against its plain version
     at the shapes of ``state``'s step (``collide_diff``: at most 0.01% of
     the entries outside), timed with CUDA events beside its plain version
-    and its bound; with ``fault``, the hull-hull kernel once more with the
-    finger pad's row (the most faces) one face short, which the comparison
-    must flag. Returns their
-    rows of the kernel table (launches still None)."""
+    and its bound; for the kernels named in ``faults``, once more with a
+    planted fault which the comparison must flag: hull-hull and box-hull
+    with every hull row of the most faces one face short (the object
+    pile's finger pad; each of the box pile's prisms, which lose their
+    bottom caps), box-box with the box sizes 0.1% small. Returns their rows of the
+    kernel table (launches still None)."""
     from mujoco_rl_ur5_tpu_torch.physics import (
         collision, constraints, cuda_collide,
     )
@@ -606,6 +639,9 @@ def collide_rows(log, model, state, fault=False) -> dict:
         f"by dist)")
     cpos, cquat = constraints.collision_poses(model, fk(model, state.qpos))
     hulls = constraints.hulls(model)
+    teams = {"box_box": cuda_collide.BOX_TEAM,
+             "hull_hull": cuda_collide.HULL_TEAM,
+             "box_hull": cuda_collide.HULL_TEAM}
     rows = {}
     for t1, t2, g1, g2, _ in constraints.pair_groups(model, cpos):
         wrapper = cuda_collide.BATCHED.get((t1, t2))
@@ -637,8 +673,8 @@ def collide_rows(log, model, state, fault=False) -> dict:
             Vr = float(model.hull_vmask[mesh].sum(-1).mean())
             Fr = float((model.hull_fdist[mesh] < 1e9).sum(-1).float().mean())
         need = collide_flops(name, Vr, Fr)[0]
-        executed = (collide_flops(name, Vr, Fr, cuda_collide.HULL_TEAM)[1]
-                    if name == "hull_hull" else collide_flops(name, V, F)[1])
+        executed = (collide_flops(name, Vr, Fr, teams[name])[1]
+                    if name in teams else collide_flops(name, V, F)[1])
         ops = B * n * need
         nbyte = nbytes(cpos, cquat, g1.int(), g2.int(), *got)
         t_bytes = nbyte / PEAK_BYTES_PER_S * 1e3
@@ -665,25 +701,35 @@ def collide_rows(log, model, state, fault=False) -> dict:
         if bad > 1e-4 * max(live, 1):
             raise AssertionError(f"{name}: {bad} entries outside the "
                                  f"tolerance")
-        if name != "hull_hull":
+        if name in ONE_THREAD:
+            (bm, bd), (om, od) = ONE_THREAD[name]
+            log(f"  {name}: the one-thread kernel before this design: "
+                f"{bm:.3f} ms per call (device {bd:.3f}) on the box pile, "
+                f"{om:.3f} ({od:.3f}) on the object pile")
+        if name not in faults:
             continue
-        log("  hull_hull: the one-thread kernel before this design, over "
-            "the padded tables: 2.313 ms per call (device 2.292) on the box "
-            "pile, 2.681 (2.665) on the object pile")
-        if fault:
-            nface = hulls.nface
-            short = nface.clone()
-            pad = int(torch.argmax(nface))
-            short[pad] -= 1
-            bad_f, _, err_f = collide_diff(cuda_collide.hull_hull_launch(
-                cpos, cquat, hulls._replace(nface=short), g1, g2), want)
-            log(f"  hull_hull, planted fault (row {pad}'s face count "
-                f"{int(nface[pad])} one short): {bad_f} entries outside the "
-                f"tolerance, max |kernel - plain| {err_f:.3e}: "
-                + ("caught" if bad_f > 1e-4 * max(live, 1) else "NOT caught"))
-            if not bad_f > 1e-4 * max(live, 1):
-                raise AssertionError("hull_hull's planted fault was not "
-                                     "caught")
+        if name == "box_box":
+            what = "the box sizes 0.1% small"
+            faulty = wrapper(cpos, cquat, model.col_size * 0.999, hulls, g1,
+                             g2)
+        else:
+            short = hulls.nface.clone()
+            most = (short == short.max()).nonzero().flatten().tolist()
+            what = (f"every row of the most faces, {int(short.max())}, one "
+                    f"face short: rows {most[0]}-{most[-1]}, {len(most)}")
+            short[most] -= 1
+            faulty = (cuda_collide.hull_hull_launch(
+                cpos, cquat, hulls._replace(nface=short), g1, g2)
+                if name == "hull_hull" else cuda_collide.box_hull_launch(
+                    cpos, cquat, model.col_size,
+                    hulls._replace(nface=short), g1, g2))
+        bad_f, _, err_f = collide_diff(faulty, want)
+        caught = bad_f > 1e-4 * max(live, 1)
+        log(f"  {name}, planted fault ({what}): {bad_f} entries outside "
+            f"the tolerance, max |kernel - plain| {err_f:.3e}: "
+            + ("caught" if caught else "NOT caught"))
+        if not caught:
+            raise AssertionError(f"{name}'s planted fault was not caught")
     return rows
 
 
@@ -809,8 +855,12 @@ def contact_step(log, dump_settle=None) -> dict:
 
     rolls_agree(log, model, state, warm)
 
-    # 7b. the four kernels against their plain versions at the step's shapes
-    rows = collide_rows(log, model, state)
+    # 7b. the four kernels against their plain versions at the step's
+    # shapes, and the planted faults of box-box and box-hull (the object
+    # pile's row of the most faces, the finger pad's, meets no box; here
+    # every prism loses its last face, its bottom cap: one prism's cap
+    # alone decides too few box-hull entries to cross the 0.01% limit)
+    rows = collide_rows(log, model, state, faults=("box_box", "box_hull"))
 
     # 7c. the step at full width, through the kernels. Every call starts
     # from the seeded drop, as bench.py's bench_dynamics times its roll
@@ -980,7 +1030,7 @@ def object_pile(log):
 
     # 9b. the six collide kernels at the settled pile's shapes, and
     # hull_hull's planted fault
-    rows = collide_rows(log, model, state, fault=True)
+    rows = collide_rows(log, model, state, faults=("hull_hull",))
     if set(rows) != set(OBJ_COLLIDE):
         raise AssertionError(f"collide groups {sorted(rows)}, expected "
                              f"{sorted(OBJ_COLLIDE)}")
@@ -1457,18 +1507,19 @@ def main() -> int:
     for i, src in enumerate(srcs):
         for line in _build.ptxas_report(src):
             log(f"  ptxas {src.name}{variants.get(i, '')}: {line}")
-    # the four redesigned kernels: resident blocks per SM (the card's
-    # occupancy calculator), threads and shared memory per block (the ray
-    # cast's at the object pile's table sizes)
+    # the redesigned kernels: resident blocks per SM (the card's occupancy
+    # calculator), threads and shared memory per block (the hull kernels'
+    # and the ray cast's at the object pile's table sizes)
     from mujoco_rl_ur5_tpu_torch import OBJECTS
     from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
     from mujoco_rl_ur5_tpu_torch.scene.mjcf import GEOM_MESH
     host = compile_file(OBJECTS)
+    tables = tuple(host.hull_verts.shape[:2]) + (host.hull_fnorm.shape[1],)
     occ_args = {"lqr_backward": (), "chain_lin_fd": (),
                 "chain_rollout_closed": (len(ALPHAS),),
                 "chain_rollout_open": (),
-                "collide_hull_hull": tuple(host.hull_verts.shape[:2])
-                + (host.hull_fnorm.shape[1],),
+                "collide_hull_hull": tables, "collide_box_hull": tables,
+                "collide_box_box": (),
                 "raycast": (host.topo.ngeom, host.hull_fnorm.shape[1],
                             int((host.topo.geom_type == GEOM_MESH).sum()))}
     for i, src in enumerate(srcs):
@@ -1479,11 +1530,15 @@ def main() -> int:
             f"blocks of {threads} threads per SM, {smem} bytes of shared "
             f"memory per block")
     del host
+    # no spill; and no stack frame for the three team collide kernels
     for what, src in (("lqr_backward", cuda_lqr.SOURCE),
-                      ("hull_hull", cuda_collide.source("hull_hull"))):
-        spills = spill_bytes(_build.ptxas_report(src))
-        if spills:
-            raise AssertionError(f"{what} spills {spills} bytes")
+                      *((k, cuda_collide.source(k))
+                        for k in ("hull_hull", "box_hull", "box_box"))):
+        report = _build.ptxas_report(src)
+        spills, stack = spill_bytes(report), stack_bytes(report)
+        if spills or (what != "lqr_backward" and stack):
+            raise AssertionError(f"{what} spills {spills} bytes, stack "
+                                 f"{stack} bytes")
     stamp("phases 1-2")
 
     plan, nx, nu, nq, w = mpc.plan, mpc.nx, mpc.nu, mpc.nq, mpc.w
@@ -1573,7 +1628,8 @@ def main() -> int:
     def f64(*ts):
         return [t.double() if torch.is_tensor(t) else t for t in ts]
 
-    # rollout_open, held by that rule at B=4096 and at a ragged B=509,
+    # rollout_open, held by that rule at B=4096 and at a ragged B=509 (over
+    # H=8 knots: its plain version is launch-bound, as rollout_closed's),
     # called twice (equal to the bit), timed with CUDA events and on the
     # device. Its latency floors: H x substeps dependent substeps of the
     # critical path's levels, at OP_CYCLES per arithmetic level and
@@ -1581,7 +1637,7 @@ def main() -> int:
     # card's largest SM clock: the one-thread substep's depth from the
     # emitter (chain_substep.cuh; a floor for the function), and the team
     # design's from a hand count (cc.team_depth: a floor for this design)
-    rb = (x0[:509], u_hold[:509])
+    rb = (x0[:509], u_hold[:509, :8].contiguous())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plain = {B: cc.rollout_open_plain(plan, SUBSTEPS, x0, u_hold)}
@@ -1610,7 +1666,8 @@ def main() -> int:
         ek = float((got.double() - r).abs().max() / r.abs().max())
         ep = float((plain[bb].double() - r).abs().max() / r.abs().max())
         d = float((got - plain[bb]).abs().max())
-        log(f"  rollout_open xs, B={bb}: max |kernel - plain| {d:.3e}; "
+        log(f"  rollout_open xs, B={bb}, H={got.shape[1] - 1}: max |kernel "
+            f"- plain| {d:.3e}; "
             f"error vs float64: kernel {ek:.3e}, plain {ep:.3e}")
         check(f"rollout_open xs, B={bb}", ek, 2 * ep + 1e-6,
               "kernel error vs float64")
@@ -1809,6 +1866,8 @@ def main() -> int:
            "(device 2.72)")
     del g, xk, xs
 
+    stamp("phase 3")
+
     # 4. the main paths at full width
     names = ("rollout_open", "lin_fd", "rollout_closed", "backward",
              "ee_quad_gn")
@@ -1879,6 +1938,8 @@ def main() -> int:
         f"substeps={SUBSTEPS} iters={ITERS}")
     timed_solves(mpc, xr0, targets, x0, q_refs, first, lin_check=True)
 
+    stamp("phase 4")
+
     # 5. the whole paths through the kernels against the plain versions.
     # Both solvers linearize by forward differences in f32 (see lin_fd). At
     # the default w_ctrl=1e-3 and a 128 ms horizon the solved controls are
@@ -1937,7 +1998,7 @@ def main() -> int:
         if not float(ri.cost) < float(starts[what]):
             raise AssertionError(f"{what} did not lower the cost")
 
-    stamp("phases 3-6")
+    stamp("phases 5-6")
 
     # 7-8. the contact step
     contact_step(log, opts.dump_settle)

@@ -21,7 +21,8 @@ plane-hull, physics/cuda_collide.py) spell out every product and sum in
 the kernels' order (``_dot3``, ``_rot``), elementwise, where the JAX
 package uses matrix products: the kernels are built without contracting
 multiply-adds, so kernel and plain version agree to the bit, on the CPU
-and on the card alike. A resting object has candidates of equal depth
+and on the card alike (box-box's cross axes take the correctly rounded
+root, ``_sqrt``, as the kernel's sqrtf does). A resting object has candidates of equal depth
 (the four bottom corners of a box, sixteen rim vertices of an upright
 prism), and a difference in the last bit would break their tie otherwise
 in the two versions.
@@ -71,6 +72,13 @@ def _rot_t(R, v):
 
 def _norm(a):
     return torch.sqrt(_dot3(a, a))
+
+
+def _sqrt(x):
+    """The correctly rounded float32 square root, as a kernel's sqrtf
+    (torch's vectorised CPU sqrt is off by an ulp in about 0.7% of cases;
+    the float64 root rounded to float32 is exact)."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def _zaxis(q, like):
@@ -274,7 +282,7 @@ def _box_box_edge(p1, R1, s1, p2, R2, s2):
     Bx = R2.transpose(-1, -2)
     crs = cross(A[..., :, None, :], Bx[..., None, :, :])      # (..., 3, 3, 3)
     crs = crs.reshape(crs.shape[:-3] + (9, 3))
-    cn = torch.sqrt(_dot3(crs, crs))
+    cn = _sqrt(_dot3(crs, crs))
     valid = cn > 1e-8
     cu = crs / torch.clamp_min(cn, 1e-12)[..., None]
     axes = torch.cat([A, Bx, cu], -2)                          # (..., 15, 3)

@@ -16,13 +16,17 @@ Each takes the scenario batch at once: per-geom collision poses pos
 tables with each geom's row in them), and each pair's geom ids g1, g2
 (B, n) as the broadphase selected them, all in one argument order
 ``(pos, quat, size, hulls, g1, g2)``; ``BATCHED`` maps each group's type
-pair to its wrapper, and ``<wrapper>.plain`` is its plain version. One
-thread computes one (pair, scenario) and reads the poses and the small hull
-tables by id, where the TPU kernel was handed per-pair copies of every
-table (the JAX package gathers (B, 64, 32, 3) vertex tables per capped
-group); the hull-hull kernel gives each (pair, scenario) a team of
-``HULL_TEAM`` lanes, stages the table in shared memory and loops over each
-row's real vertices and faces (``Hulls.nvert``/``nface``). Each returns pos
+pair to its wrapper, and ``<wrapper>.plain`` is its plain version. The
+kernels read the poses and the small hull tables by id, where the TPU
+kernel was handed per-pair copies of every table (the JAX package gathers
+(B, 64, 32, 3) vertex tables per capped group). Box-box gives each
+(pair, scenario) a team of ``BOX_TEAM`` lanes (one corner each; the SAT
+axes split between them); hull-hull and box-hull share one team body
+(csrc/collide_hull_team.cuh, a box made from its size on side 1 of
+box-hull): a team of ``HULL_TEAM`` lanes per (pair, scenario), the table
+staged in shared memory, the loops over each row's real vertices and faces
+(``Hulls.nvert``/``nface``); plane-hull, sphere-hull and capsule-hull run
+one thread per (pair, scenario). Each returns pos
 (B, n, K, 3), normal (B, n, K, 3) and dist (B, n, K), K = 9 for box-box,
 8 for hull-hull, box-hull and plane-hull, 1 for sphere-hull and 5 for
 capsule-hull, with physics/collision.py's arithmetic, operation
@@ -60,7 +64,7 @@ class Hulls(NamedTuple):
     """The model's hull tables and each geom's row in them. Each row keeps
     its real vertices and faces first (scene/compile.py lays the tables out
     so); ``nvert`` and ``nface`` are their counts (``hull_counts``), which
-    the hull-hull kernel loops over and takes as given."""
+    the hull-hull and box-hull kernels loop over and take as given."""
 
     meshid: torch.Tensor   # (G,) int, -1 for a geom that is no hull
     verts: torch.Tensor    # (M, V, 3)
@@ -133,23 +137,28 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pos, quat, size, meshid, verts, vmask, fnorm, fdist, g1, g2,
 # out_pos, out_nrm, out_dist, B, n, G, V, F, stream
 _ARGS = (_P,) * 13 + (_I,) * 5 + (_P,)
-# hull_hull: pos, quat, meshid, verts, fnorm, fdist, nvert, nface, g1, g2,
-# out_pos, out_nrm, out_dist, B, n, G, M, V, F, stream
-_HH_ARGS = (_P,) * 13 + (_I,) * 6 + (_P,)
-HULL_TEAM = 4   # lanes per (pair, scenario) of csrc/collide_hull_hull.cu
+# the team hull kernels: pos, quat, [size: box_hull], meshid, verts, fnorm,
+# fdist, nvert, nface, g1, g2, out_pos, out_nrm, out_dist, B, n, G, M, V, F,
+# stream
+_TEAM_ARGS = {"hull_hull": (_P,) * 13 + (_I,) * 6 + (_P,),
+              "box_hull": (_P,) * 14 + (_I,) * 6 + (_P,)}
+BOX_TEAM = 8    # lanes per (pair, scenario) of csrc/collide_box_box.cu
+HULL_TEAM = 4   # lanes per (pair, scenario) of csrc/collide_hull_team.cuh
+_HEADERS = ("collide_common.cuh", "collide_hull_team.cuh")
 
 
 @functools.lru_cache(maxsize=None)
 def source(kernel: str) -> _build.KernelSource:
     """The build unit of one collide kernel (csrc/collide_<kernel>.cu with
-    the shared csrc/collide_common.cuh), compiled without contracting
-    multiply-adds so that it rounds as its plain version does."""
-    with open(os.path.join(_build.CSRC, "collide_common.cuh")) as f:
-        common = f.read()
+    the shared headers), compiled without contracting multiply-adds so that
+    it rounds as its plain version does."""
+    headers = {}
+    for name in _HEADERS:
+        with open(os.path.join(_build.CSRC, name)) as f:
+            headers[name] = f.read()
     return _build.KernelSource(
         f"collide_{kernel}", f"collide_{kernel}",
-        _HH_ARGS if kernel == "hull_hull" else _ARGS,
-        {"collide_common.cuh": common}, flags=("-fmad=false",))
+        _TEAM_ARGS.get(kernel, _ARGS), headers, flags=("-fmad=false",))
 
 
 def kernel_sources() -> list:
@@ -214,38 +223,45 @@ def _launch(wrapper, kernel: str, K: int, pos, quat, size, hulls, g1, g2):
     return out_pos, out_nrm, out_dist
 
 
-def hull_hull_smem(M: int, V: int, F: int) -> int:
-    """Shared memory (bytes) one hull-hull block takes for tables of M rows
-    of V vertices and F faces: its 128 / HULL_TEAM instances' world
-    vertices (2 V + 1 rows of 16 bytes each) and the staged table (csrc
-    collide_hull_hull.cu smem_bytes)."""
-    return (128 // HULL_TEAM * (2 * V + 1) * 4 + M * V * 3 + M * F * 4
+def hull_hull_smem(M: int, V: int, F: int, box1: bool = False) -> int:
+    """Shared memory (bytes) one hull-hull block (box-hull: ``box1``)
+    takes for tables of M rows of V vertices and F faces: its 128 /
+    HULL_TEAM instances' world vertices (V + V + 1 rows of 16 bytes each,
+    8 + V + 1 with a box on side 1) and the staged table (csrc
+    collide_hull_team.cuh smem_bytes)."""
+    rows = (8 if box1 else V) + V + 1
+    return (128 // HULL_TEAM * rows * 4 + M * V * 3 + M * F * 4
             + 2 * M) * 4
 
 
-def hull_hull_launch(pos, quat, hulls: Hulls, g1, g2):
-    """One csrc/collide_hull_hull.cu launch, counted in
-    ``hull_hull_batched.launches``. The kernel loops over each row's real
-    vertices and faces, ``hulls.nvert``/``hulls.nface`` (raises without
-    them), and stages the whole table in one block's shared memory: raises
-    where it does not fit."""
+def _team_launch(kernel: str, pos, quat, size, hulls: Hulls, g1, g2):
+    """One launch of the team hull body (``kernel`` hull_hull, or box_hull
+    with the boxes' sizes), counted in its wrapper's ``launches``."""
     B, G = pos.shape[0], pos.shape[1]
     n = g1.shape[-1]
     dev = pos.device
-    pos, quat = _poses("hull_hull", pos, quat)
+    pos, quat = _poses(kernel, pos, quat)
     _route(hulls.verts, hulls.vmask, hulls.fnorm, hulls.fdist)
     M, V, F = hulls.verts.shape[0], hulls.verts.shape[1], hulls.fnorm.shape[1]
     if V < 8 or hulls.meshid.shape != (G,):
-        raise ValueError("hull_hull: hull tables need >= 8 vertices and a "
+        raise ValueError(f"{kernel}: hull tables need >= 8 vertices and a "
                          "mesh row per geom")
     if hulls.nvert is None or hulls.nface is None:
-        raise ValueError("hull_hull: the kernel takes each row's real vertex "
+        raise ValueError(f"{kernel}: the kernel takes each row's real vertex "
                          "and face counts (Hulls.nvert, Hulls.nface)")
-    need = hull_hull_smem(M, V, F)
+    box1 = kernel == "box_hull"
+    need = hull_hull_smem(M, V, F, box1)
     if need > _SMEM_BLOCK:
-        raise ValueError(f"hull_hull: tables of {M} rows x {V} vertices x "
+        raise ValueError(f"{kernel}: tables of {M} rows x {V} vertices x "
                          f"{F} faces need {need} bytes of shared memory, a "
                          f"block has {_SMEM_BLOCK}")
+    sizes = ()
+    if box1:
+        size = size.contiguous()
+        if size.shape != (G, 3):
+            raise ValueError(f"{kernel}: size (G, 3) expected, got "
+                             f"{tuple(size.shape)}")
+        sizes = (size.data_ptr(),)
     meshid = hulls.meshid.to(device=dev, dtype=torch.int32).contiguous()
     verts, fnorm, fdist = (t.contiguous() for t in (hulls.verts, hulls.fnorm,
                                                     hulls.fdist))
@@ -254,14 +270,31 @@ def hull_hull_launch(pos, quat, hulls: Hulls, g1, g2):
     ids = _ids(g1, g2, B, n, dev)
     out_pos, out_nrm, out_dist = _outputs(B, n, 8, dev)
     if B * n:
-        _build.call(source("hull_hull"), pos.data_ptr(), quat.data_ptr(), meshid.data_ptr(),
-                    verts.data_ptr(), fnorm.data_ptr(), fdist.data_ptr(),
-                    counts[0].data_ptr(), counts[1].data_ptr(),
-                    ids[0].data_ptr(), ids[1].data_ptr(), out_pos.data_ptr(),
+        _build.call(source(kernel), pos.data_ptr(), quat.data_ptr(), *sizes,
+                    meshid.data_ptr(), verts.data_ptr(), fnorm.data_ptr(),
+                    fdist.data_ptr(), counts[0].data_ptr(),
+                    counts[1].data_ptr(), ids[0].data_ptr(),
+                    ids[1].data_ptr(), out_pos.data_ptr(),
                     out_nrm.data_ptr(), out_dist.data_ptr(), B, n, G, M, V, F,
                     _stream(pos))
-        hull_hull_batched.launches += 1
+        (box_hull_batched if box1 else hull_hull_batched).launches += 1
     return out_pos, out_nrm, out_dist
+
+
+def hull_hull_launch(pos, quat, hulls: Hulls, g1, g2):
+    """One csrc/collide_hull_hull.cu launch, counted in
+    ``hull_hull_batched.launches``. The kernel loops over each row's real
+    vertices and faces, ``hulls.nvert``/``hulls.nface`` (raises without
+    them), and stages the whole table in one block's shared memory: raises
+    where it does not fit."""
+    return _team_launch("hull_hull", pos, quat, None, hulls, g1, g2)
+
+
+def box_hull_launch(pos, quat, size, hulls: Hulls, g1, g2):
+    """One csrc/collide_box_hull.cu launch (the boxes g1 from their sizes,
+    the hulls g2 from the tables), counted in ``box_hull_batched.launches``,
+    with ``hull_hull_launch``'s checks."""
+    return _team_launch("box_hull", pos, quat, size, hulls, g1, g2)
 
 
 def _wrapper(kernel: str, K: int, plain, doc: str):
@@ -274,6 +307,8 @@ def _wrapper(kernel: str, K: int, plain, doc: str):
             return plain(pos, quat, size, hulls, g1, g2)
         if kernel == "hull_hull":
             return hull_hull_launch(pos, quat, hulls, g1, g2)
+        if kernel == "box_hull":
+            return box_hull_launch(pos, quat, size, hulls, g1, g2)
         return _launch(batched, kernel, K, pos, quat, size,
                        hulls if tables else None, g1, g2)
     batched.__name__ = batched.__qualname__ = f"{kernel}_batched"

@@ -124,7 +124,10 @@ def test_kernel_sources_are_in_the_package():
     for s in srcs:
         assert "collide_common.cuh" in s.headers
         k = s.entry[len("collide_"):]
-        # hull-hull has its own entry: real counts, the table in shared
-        # memory, a grid-stride launch
-        assert (f'extern "C" int {s.entry}(' if k == "hull_hull"
-                else f"COLLIDE_ENTRY({k})") in s.text
+        # the team kernels launch otherwise: hull-hull and box-hull have
+        # their own entries (real counts, the table in shared memory, a
+        # grid-stride launch), box-box a team of lanes per instance
+        entry = {"hull_hull": f'extern "C" int {s.entry}(',
+                 "box_hull": f'extern "C" int {s.entry}(',
+                 "box_box": "COLLIDE_ENTRY_IPB(box_box, IPB)"}
+        assert entry.get(k, f"COLLIDE_ENTRY({k})") in s.text

@@ -55,6 +55,11 @@ inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 inline float rsqrtf(float a) { return 1.0f / std::sqrt(a); }
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 struct ShimDim { unsigned x = 0, y = 0, z = 0; };
 static thread_local ShimDim threadIdx;

@@ -16,7 +16,9 @@ falls back to the CPU when CUDA is asked for.
   entry points on CPU tensors, with hull tables of 34 faces (the finger
   pad's hull beside a cylinder's prism), they give their plain versions'
   outputs to the bit (both round every product and sum in the same order;
-  the host build, like nvcc's, does not contract them). The ray cast
+  the host build, like nvcc's, does not contract them). Box-hull's
+  launch, like hull-hull's, raises without the hull rows' real counts and
+  where the table does not fit one block's shared memory. The ray cast
   (csrc/raycast.cu, a block per 16 x 16 tile of a frame, its geoms culled
   per tile) does the same on three 24 x 20 frames of the object pile with
   a geom hidden: s*, geom id and normal equal to render/raycast.py's plain
@@ -271,8 +273,9 @@ def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
     outs = [torch.empty(B, n, K, 3), torch.empty(B, n, K, 3),
             torch.empty(B, n, K)]
     ids = [g1.to(torch.int32), g2.to(torch.int32)]
-    if kernel == "hull_hull":       # real counts, the table staged: no size
-        keep = [pos, quat, hulls.meshid.to(torch.int32), hulls.verts,
+    if kernel in ("hull_hull", "box_hull"):   # real counts, table staged
+        sizes = [size] if kernel == "box_hull" else []
+        keep = [pos, quat, *sizes, hulls.meshid.to(torch.int32), hulls.verts,
                 hulls.fnorm, hulls.fdist,
                 *cuda_collide.hull_counts(hulls.vmask, hulls.fdist), *ids,
                 *outs]
@@ -289,6 +292,40 @@ def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
     for got, ref in zip(outs, want):
         np.testing.assert_array_equal(got[act].numpy(), ref[act].numpy())
     assert bool((outs[2][~act] >= 1.0).all())
+
+
+def _box_hull_operands(M=2, V=32, F=34):
+    """CPU operands of a box-hull launch: 4 geoms (boxes 0-1, hulls 2-3),
+    tables of M rows with their counts."""
+    B, n, G = 2, 3, 4
+    hulls = cuda_collide.Hulls(
+        torch.tensor([-1, -1, 0, M - 1]), torch.zeros(M, V, 3),
+        torch.ones(M, V), torch.zeros(M, F, 3), torch.zeros(M, F),
+        torch.full((M,), V, dtype=torch.int32),
+        torch.full((M,), F, dtype=torch.int32))
+    return (torch.zeros(B, G, 3), torch.zeros(B, G, 4), torch.ones(G, 3),
+            hulls, torch.zeros(B, n, dtype=torch.long),
+            torch.full((B, n), 2))
+
+
+def test_box_hull_launch_needs_the_counts():
+    pos, quat, size, hulls, g1, g2 = _box_hull_operands()
+    for missing in ("nvert", "nface"):
+        with pytest.raises(ValueError, match="counts"):
+            cuda_collide.box_hull_launch(pos, quat, size,
+                                         hulls._replace(**{missing: None}),
+                                         g1, g2)
+
+
+def test_box_hull_raises_where_the_table_does_not_fit():
+    """Box-hull stages the hull table in one block's shared memory, as
+    hull-hull does (with 8 rows for the box's corners in place of V): a
+    table too large for it raises before any build or launch."""
+    assert (cuda_collide.hull_hull_smem(11, 32, 34, box1=True)
+            == cuda_collide.hull_hull_smem(11, 32, 34) - 32 * 24 * 16)
+    pos, quat, size, hulls, g1, g2 = _box_hull_operands(M=2000)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_collide.box_hull_launch(pos, quat, size, hulls, g1, g2)
 
 
 def test_raycast_kernel_source_runs_on_the_host(tmp_path):
