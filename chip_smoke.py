@@ -10,12 +10,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (five kernels; rollout_closed once with the track costs and once with
      the reach costs), the six collide kernels and the ray cast, one nvcc
      per source, in parallel, with the build time and ptxas's register,
-     stack and spill report (lqr_backward, hull_hull, box_hull and box_box
-     must spill nothing, the three collide kernels use no stack), and the
+     stack and spill report (lqr_backward and the five team collide
+     kernels, box_box, hull_hull, box_hull, plane_hull and capsule_hull,
+     must spill nothing, the five collide kernels use no stack), and the
      resident blocks per SM, threads and shared memory per block of the
-     eight redesigned kernels (lqr_backward, rollout_closed, lin_fd,
-     rollout_open, hull_hull, box_hull, box_box and the ray cast; the hull
-     kernels and the ray cast at the object pile's table sizes);
+     ten redesigned kernels (lqr_backward, rollout_closed, lin_fd,
+     rollout_open, the five team collide kernels and the ray cast; the
+     hull kernels and the ray cast at the object pile's table sizes);
   3. kernels: each kernel's wrapper at the shapes the main paths give it
      (B=4096, H=64, substeps=8), held against its plain PyTorch version on
      the same inputs on the card, output by output, with the tolerance
@@ -62,11 +63,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      pile, which must agree to the bit; the four narrowphase kernels
      (box_box, hull_hull, box_hull, plane_hull) held against their plain
      versions at the shapes of the settled pile's step, timed beside their
-     plain versions, bounds and (box_box, hull_hull, box_hull) the
-     one-thread kernels' times they replaced, with two planted faults which
-     the comparison must flag (box_box with the box sizes 0.1% small,
-     box_hull with the rows of the most faces, every prism, one face
-     short);
+     plain versions, bounds and the one-thread kernels' times they
+     replaced, with three planted faults which the comparison must flag
+     (box_box with the box sizes 0.1% small, box_hull with the rows of the
+     most faces, every prism, one face short, plane_hull with every row one
+     vertex short);
      the step at iterations=100 and 30 (25
      steps per call from the seeded drop, as bench.py's bench_dynamics
      times them, median of 3 calls, which must end in the same state),
@@ -84,10 +85,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the bin by family, the rest gap and the largest speeds; two 5-step
      rolls that must agree to the bit; all six collide kernels against
      their plain versions at the settled pile's shapes, timed beside their
-     plain versions and bounds (hull_hull also once with a planted fault,
-     the finger pad's face count one short, which the comparison must
-     flag; the pad meets no box, so box_hull's fault runs in phase 7); the
-     step at iterations=100
+     plain versions and bounds, with two planted faults which the
+     comparison must flag (hull_hull with the finger pad's face count one
+     short, capsule_hull with every row one face short; the pad meets no
+     box, so box_hull's fault runs in phase 7); the step at
+     iterations=100
      (median of 3 calls of 25 steps from the seeded drop, one launch of
      each collide kernel per step, the calls equal to the bit); one step
      at B=64, iterations=30 against the CPU's plain path with phase 8's
@@ -405,7 +407,8 @@ def profile_solve(solve, lin_check=False) -> None:
         check_lin_spans(prof)
 
 
-def collide_flops(kernel: str, V: int, F: int, team: int = 1) -> tuple:
+def collide_flops(kernel: str, V: int, F: int, team: int = 1,
+                  vpad: int = 0) -> tuple:
     """Floating-point operations of one (pair, scenario) of a collide
     function: (what the function needs, what the kernel executes). What it
     needs: a pose from a quaternion 36; a vertex to world 18, once per hull;
@@ -415,47 +418,54 @@ def collide_flops(kernel: str, V: int, F: int, team: int = 1) -> tuple:
     corner tested against a box 59; a SAT axis 60 (a cross axis 78); the
     edge contact and the box-box outputs 216. The deepest-vertex pass of
     hull-hull and box-hull runs on the side whose face lost, which the data
-    decide: it is counted on the smaller side. The plane-hull kernel moves
-    every vertex to world again for each output slot (25 per vertex), which
-    keeps its registers few. The team kernels (``team`` lanes per instance)
-    move each vertex and face to world once, loop over the real ones only
-    and compute each SAT axis once, but every lane forms both poses, the
-    team reduces its faces' or axes' extrema (3 per step and lane), and
-    ranks replace the top-k: the deepest pass of hull-hull and box-hull
-    ranks at least 8 vertices against each other as 64-bit keys (a key 4
-    per lane and vertex, a comparison 3 per pair; box-hull's counted on the
-    box), box-box ranks each way's 8 corners (3 per pair), and the winning
-    face moves to world once more (20). A sphere probe
-    scores a center against a face 7 and writes a contact 12; a capsule's
-    hull centre is a masked sum 24 per vertex, its five probe centres 48.
-    Call it with the hulls' real vertex and face counts for what the
-    function needs and what the team kernels execute, with the padded ones
-    for what the one-thread hull kernels execute."""
+    decide: it is counted on the smaller side. A sphere probe scores a
+    center against a face 7 and writes a contact 12; a capsule's hull
+    centre is a masked sum 24 per vertex, its five probe centres 48. The
+    team kernels (``team`` lanes per instance) move each vertex and face to
+    world once, loop over the real ones only and compute each SAT axis
+    once, but every lane forms both poses, the team reduces its faces' or
+    axes' extrema (3 per step and lane), and ranks replace the top-k: the
+    deepest pass of hull-hull, box-hull and plane-hull ranks at least 8
+    vertices against each other as 64-bit keys (a key 4 per lane and
+    vertex, a comparison 3 per pair; box-hull's counted on the box),
+    box-box ranks each way's 8 corners (3 per pair), and the winning face
+    moves to world once more (20; capsule-hull's five, one per probe).
+    Plane-hull's lanes each form the plane's offset (5); capsule-hull moves
+    all ``vpad`` vertices of the table row (the padded ones too, for the
+    plain version's masked sum), three lanes sum one coordinate each (an
+    addition per vertex, a multiplication by 0 per padded one), every lane
+    forms the probe centres, and the team reduces five maxima. Call it with
+    the hulls' real vertex and face counts for what the function needs and
+    what the team kernels execute, with the padded ones for what the
+    one-thread sphere-hull kernel executes."""
     pose = 2 * 36
     steps = 3 * (team.bit_length() - 1)     # one team reduction, per lane
+    Vx = max(V, 8)
+    ranks = Vx * 7 + team * Vx * 4 + Vx * Vx * 3 + 8 * 7
     if kernel == "sphere_hull":
         n = 36 + F * (20 + 7) + 12
         return n, n + 36
     if kernel == "capsule_hull":
-        n = pose + V * 24 + 4 + 48 + F * (20 + 5 * 7) + 5 * 12
-        return n, n
+        return (pose + V * 24 + 4 + 48 + F * (20 + 5 * 7) + 5 * 12,
+                team * pose + vpad * 18 + 3 * vpad + 3 * (vpad - V)
+                + team * (4 + 48)
+                + F * (20 + 5 * 7) + 5 * team * steps + 5 * (20 + 12))
     if kernel == "box_box":
         n = pose + 16 * 59 + 6 * 60 + 9 * 78 + 216
         return n, (team * pose + 16 * 59 + 2 * 8 * 8 * 3 + 6 * 60 + 9 * 78
                    + team * steps + 216)
     if kernel == "plane_hull":
-        return (pose + 5 + V * 25 + 8 * 7, pose + 5 + V * 25 + 8 * 25)
+        return (pose + 5 + V * 25 + 8 * 7,
+                team * (pose + 5) + Vx * 18 + ranks)
     if kernel == "hull_hull":
-        Vx = max(V, 8)
         return (pose + 2 * V * 18 + 2 * F * 22 + 2 * F * V * 6 + V * 7
                 + 8 * 7,
                 team * pose + 2 * Vx * 18 + 2 * F * 22 + 20
-                + 2 * F * V * 6 + 2 * steps + Vx * 7 + team * Vx * 4
-                + Vx * Vx * 3 + 8 * 7)
+                + 2 * F * V * 6 + 2 * steps + ranks)
     # box-hull: the box's 8 vertices and 6 faces against the hull's V, F
     n = (pose + (8 + V) * 18 + (6 + F) * 22 + (8 * F + 6 * V) * 6 + 8 * 7
          + 8 * 7)
-    return n, (team * pose + (8 + max(V, 8)) * 18 + (6 + F) * 22 + 20
+    return n, (team * pose + (8 + Vx) * 18 + (6 + F) * 22 + 20
                + (8 * F + 6 * V) * 6 + 2 * steps + 8 * 7 + team * 8 * 4
                + 8 * 8 * 3 + 8 * 7)
 
@@ -613,10 +623,13 @@ def collide_diff(got, want) -> tuple:
 
 
 # the one-thread kernels that the team kernels replaced: ms per call (device
-# ms) on the box pile and on the object pile (PERF.md section 6)
+# ms) on the box pile and on the object pile (PERF.md section 6; None: the
+# pile has no such group)
 ONE_THREAD = {"box_box": ((0.331, 0.316), (0.331, 0.317)),
               "hull_hull": ((2.313, 2.292), (2.681, 2.665)),
-              "box_hull": ((0.646, 0.626), (0.467, 0.454))}
+              "box_hull": ((0.646, 0.626), (0.467, 0.454)),
+              "plane_hull": ((0.113, 0.090), (0.075, 0.050)),
+              "capsule_hull": (None, (0.156, 0.144))}
 
 
 def collide_rows(log, model, state, faults=()) -> dict:
@@ -627,8 +640,9 @@ def collide_rows(log, model, state, faults=()) -> dict:
     planted fault which the comparison must flag: hull-hull and box-hull
     with every hull row of the most faces one face short (the object
     pile's finger pad; each of the box pile's prisms, which lose their
-    bottom caps), box-box with the box sizes 0.1% small. Returns their rows of the
-    kernel table (launches still None)."""
+    bottom caps), capsule-hull with every row one face short, plane-hull
+    with every row one vertex short, box-box with the box sizes 0.1%
+    small. Returns their rows of the kernel table (launches still None)."""
     from mujoco_rl_ur5_tpu_torch.physics import (
         collision, constraints, cuda_collide,
     )
@@ -640,8 +654,7 @@ def collide_rows(log, model, state, faults=()) -> dict:
     cpos, cquat = constraints.collision_poses(model, fk(model, state.qpos))
     hulls = constraints.hulls(model)
     teams = {"box_box": cuda_collide.BOX_TEAM,
-             "hull_hull": cuda_collide.HULL_TEAM,
-             "box_hull": cuda_collide.HULL_TEAM}
+             **{k: cuda_collide.HULL_TEAM for k in cuda_collide.TEAM}}
     rows = {}
     for t1, t2, g1, g2, _ in constraints.pair_groups(model, cpos):
         wrapper = cuda_collide.BATCHED.get((t1, t2))
@@ -673,7 +686,7 @@ def collide_rows(log, model, state, faults=()) -> dict:
             Vr = float(model.hull_vmask[mesh].sum(-1).mean())
             Fr = float((model.hull_fdist[mesh] < 1e9).sum(-1).float().mean())
         need = collide_flops(name, Vr, Fr)[0]
-        executed = (collide_flops(name, Vr, Fr, teams[name])[1]
+        executed = (collide_flops(name, Vr, Fr, teams[name], V)[1]
                     if name in teams else collide_flops(name, V, F)[1])
         ops = B * n * need
         nbyte = nbytes(cpos, cquat, g1.int(), g2.int(), *got)
@@ -702,27 +715,32 @@ def collide_rows(log, model, state, faults=()) -> dict:
             raise AssertionError(f"{name}: {bad} entries outside the "
                                  f"tolerance")
         if name in ONE_THREAD:
-            (bm, bd), (om, od) = ONE_THREAD[name]
             log(f"  {name}: the one-thread kernel before this design: "
-                f"{bm:.3f} ms per call (device {bd:.3f}) on the box pile, "
-                f"{om:.3f} ({od:.3f}) on the object pile")
+                + ", ".join(f"{r[0]:.3f} ms per call (device {r[1]:.3f}) "
+                            f"on the {pile} pile"
+                            for r, pile in zip(ONE_THREAD[name],
+                                               ("box", "object")) if r))
         if name not in faults:
             continue
+        size = model.col_size
         if name == "box_box":
             what = "the box sizes 0.1% small"
-            faulty = wrapper(cpos, cquat, model.col_size * 0.999, hulls, g1,
-                             g2)
+            size, faulty_hulls = size * 0.999, hulls
+        elif name == "plane_hull":
+            what = "every row one vertex short"
+            faulty_hulls = hulls._replace(nvert=hulls.nvert - 1)
         else:
             short = hulls.nface.clone()
-            most = (short == short.max()).nonzero().flatten().tolist()
-            what = (f"every row of the most faces, {int(short.max())}, one "
-                    f"face short: rows {most[0]}-{most[-1]}, {len(most)}")
+            if name == "capsule_hull":
+                what, most = "every row one face short", slice(None)
+            else:
+                most = (short == short.max()).nonzero().flatten().tolist()
+                what = (f"every row of the most faces, {int(short.max())}, "
+                        f"one face short: rows {most[0]}-{most[-1]}, "
+                        f"{len(most)}")
             short[most] -= 1
-            faulty = (cuda_collide.hull_hull_launch(
-                cpos, cquat, hulls._replace(nface=short), g1, g2)
-                if name == "hull_hull" else cuda_collide.box_hull_launch(
-                    cpos, cquat, model.col_size,
-                    hulls._replace(nface=short), g1, g2))
+            faulty_hulls = hulls._replace(nface=short)
+        faulty = wrapper(cpos, cquat, size, faulty_hulls, g1, g2)
         bad_f, _, err_f = collide_diff(faulty, want)
         caught = bad_f > 1e-4 * max(live, 1)
         log(f"  {name}, planted fault ({what}): {bad_f} entries outside "
@@ -856,11 +874,13 @@ def contact_step(log, dump_settle=None) -> dict:
     rolls_agree(log, model, state, warm)
 
     # 7b. the four kernels against their plain versions at the step's
-    # shapes, and the planted faults of box-box and box-hull (the object
+    # shapes, and the planted faults of box-box, box-hull (the object
     # pile's row of the most faces, the finger pad's, meets no box; here
     # every prism loses its last face, its bottom cap: one prism's cap
-    # alone decides too few box-hull entries to cross the 0.01% limit)
-    rows = collide_rows(log, model, state, faults=("box_box", "box_hull"))
+    # alone decides too few box-hull entries to cross the 0.01% limit) and
+    # plane-hull
+    rows = collide_rows(log, model, state,
+                       faults=("box_box", "box_hull", "plane_hull"))
 
     # 7c. the step at full width, through the kernels. Every call starts
     # from the seeded drop, as bench.py's bench_dynamics times its roll
@@ -1028,9 +1048,10 @@ def object_pile(log):
     state, warm = settle(log, model, drop, drop_warm)
     rolls_agree(log, model, state, warm)
 
-    # 9b. the six collide kernels at the settled pile's shapes, and
-    # hull_hull's planted fault
-    rows = collide_rows(log, model, state, faults=("hull_hull",))
+    # 9b. the six collide kernels at the settled pile's shapes, and the
+    # planted faults of hull-hull and capsule-hull (the pile's capsules)
+    rows = collide_rows(log, model, state,
+                       faults=("hull_hull", "capsule_hull"))
     if set(rows) != set(OBJ_COLLIDE):
         raise AssertionError(f"collide groups {sorted(rows)}, expected "
                              f"{sorted(OBJ_COLLIDE)}")
@@ -1519,6 +1540,7 @@ def main() -> int:
                 "chain_rollout_closed": (len(ALPHAS),),
                 "chain_rollout_open": (),
                 "collide_hull_hull": tables, "collide_box_hull": tables,
+                "collide_plane_hull": tables, "collide_capsule_hull": tables,
                 "collide_box_box": (),
                 "raycast": (host.topo.ngeom, host.hull_fnorm.shape[1],
                             int((host.topo.geom_type == GEOM_MESH).sum()))}
@@ -1530,10 +1552,10 @@ def main() -> int:
             f"blocks of {threads} threads per SM, {smem} bytes of shared "
             f"memory per block")
     del host
-    # no spill; and no stack frame for the three team collide kernels
+    # no spill; and no stack frame for the five team collide kernels
     for what, src in (("lqr_backward", cuda_lqr.SOURCE),
                       *((k, cuda_collide.source(k))
-                        for k in ("hull_hull", "box_hull", "box_box"))):
+                        for k in ("box_box", *cuda_collide.TEAM))):
         report = _build.ptxas_report(src)
         spills, stack = spill_bytes(report), stack_bytes(report)
         if spills or (what != "lqr_backward" and stack):

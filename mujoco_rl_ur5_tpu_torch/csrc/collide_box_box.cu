@@ -12,8 +12,8 @@
 //  * lane l tests corner l of each box against the other with
 //    corner_in_box once and keeps its point, normal and distance;
 //  * the deepest 4 of each way are ranks over the way's 8 corners in
-//    (distance, index) order, exchanged by shuffles: TopK<4>'s stable
-//    order. The lane whose corner ranks j < 4 writes slot way * 4 + j;
+//    (distance, index) order, exchanged by shuffles: the plain top-4's
+//    stable order. The lane whose corner ranks j < 4 writes slot way * 4 + j;
 //  * the 15 SAT axes are split over the lanes (lane l: axes l and l + 8;
 //    0-5 the boxes' face axes, 6-14 the cross products A_i x B_j). sep_any
 //    is a max, exact in any order; the penetration's argmin keeps the first

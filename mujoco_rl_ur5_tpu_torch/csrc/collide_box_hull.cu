@@ -24,7 +24,7 @@ box_hull_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
                 float* __restrict__ out_dist, int B, int n, int G, int M,
                 int V, int F) {
   extern __shared__ float4 smem4[];
-  hull_team<true>(smem4, pos, quat, size, meshid, verts, fnorm, fdist, nvert,
+  hull_team<BOX1>(smem4, pos, quat, size, meshid, verts, fnorm, fdist, nvert,
                   nface, g1, g2, out_pos, out_nrm, out_dist, B, n, G, M, V,
                   F);
 }
@@ -42,7 +42,7 @@ extern "C" int collide_box_hull(const float* pos, const float* quat,
                                 float* out_pos, float* out_nrm,
                                 float* out_dist, int B, int n, int G, int M,
                                 int V, int F, void* stream) {
-  const size_t smem = smem_bytes(M, V, F, true);
+  const size_t smem = hull_team_smem(BOX1, M, V, F);
   int grid = 0;
   const int err = team_grid(box_hull_kernel, (long)B * n, M, V, F, smem,
                             grid);
@@ -56,5 +56,6 @@ extern "C" int collide_box_hull(const float* pos, const float* quat,
 // resident blocks per SM, threads per block and dynamic shared memory per
 // block (bytes) for tables of (M, V, F), for the build report
 extern "C" int collide_box_hull_occupancy(int* out, int M, int V, int F) {
-  return team_occupancy(box_hull_kernel, out, smem_bytes(M, V, F, true));
+  return team_occupancy(box_hull_kernel, out,
+                        hull_team_smem(BOX1, M, V, F));
 }

@@ -1,8 +1,9 @@
 // Shared device code of the six narrowphase kernels (collide_*.cu): small
-// vector helpers, the stable top-k, a row of the hull tables and the sphere
-// probes of sphere-hull and capsule-hull. The team kernels keep their own
-// bodies: box-box in collide_box_box.cu, hull-hull and box-hull in
-// collide_hull_team.cuh.
+// vector helpers, the output store, and a row of the hull tables with the
+// sphere probes of the one-thread sphere-hull kernel. The team kernels keep
+// their own bodies: box-box in collide_box_box.cu; hull-hull, box-hull and
+// plane-hull in collide_hull_team.cuh, whose staging, team and joins
+// capsule-hull (collide_capsule_hull.cu) shares.
 //
 // Each body computes one (pair, scenario), with the arithmetic,
 // guards and tie rules of mujoco_rl_ur5_tpu_torch/physics/collision.py (the
@@ -75,38 +76,6 @@ __device__ __forceinline__ void rot(const Pose& P, const float* v, float* o) {
     o[r] = P.R[r][0] * v[0] + P.R[r][1] * v[1] + P.R[r][2] * v[2];
 }
 
-// The K smallest (distance, index) pairs seen so far, ascending; an equal
-// distance stays behind the earlier ones (lax.top_k's stable order).
-template <int K>
-struct TopK {
-  float d[K];
-  int i[K];
-  __device__ __forceinline__ TopK() {
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      d[j] = COLLIDE_HUGE;
-      i[j] = 0;
-    }
-  }
-  __device__ __forceinline__ void push(float dist, int idx) {
-    if (!(dist < d[K - 1])) return;
-    bool shift = false;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const bool take = shift || dist < d[j];
-      const float td = d[j];
-      const int ti = i[j];
-      if (take) {
-        d[j] = dist;
-        i[j] = idx;
-        dist = td;
-        idx = ti;
-      }
-      shift = take;
-    }
-  }
-};
-
 __device__ __forceinline__ void store(float* __restrict__ out_pos,
                                       float* __restrict__ out_nrm,
                                       float* __restrict__ out_dist,
@@ -122,7 +91,7 @@ __device__ __forceinline__ void store(float* __restrict__ out_pos,
 
 // ---------------------------------------------------------------------------
 // a row of the hull tables (verts, vmask, fnorm, fdist), read by the
-// one-thread kernels (plane-hull, sphere-hull, capsule-hull)
+// one-thread sphere-hull kernel
 // ---------------------------------------------------------------------------
 
 struct Hull {
@@ -168,7 +137,7 @@ __device__ __forceinline__ float hull_face(const Hull& h, const Pose& P,
 // ---------------------------------------------------------------------------
 // sphere probes against a hull (collision._sphere_hull_point): for each of P
 // sphere centers, the hull face of largest signed distance (the first of
-// equals), then one contact along it: 1 slot for a sphere, 5 for a capsule.
+// equals), then one contact along it: 1 slot for a sphere.
 // The faces are moved to world once and scored against every center
 // ---------------------------------------------------------------------------
 

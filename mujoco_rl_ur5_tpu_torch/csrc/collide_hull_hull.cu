@@ -22,7 +22,7 @@ hull_hull_kernel(const float* __restrict__ pos, const float* __restrict__ quat,
                  float* __restrict__ out_dist, int B, int n, int G, int M,
                  int V, int F) {
   extern __shared__ float4 smem4[];
-  hull_team<false>(smem4, pos, quat, nullptr, meshid, verts, fnorm, fdist,
+  hull_team<HULL1>(smem4, pos, quat, nullptr, meshid, verts, fnorm, fdist,
                    nvert, nface, g1, g2, out_pos, out_nrm, out_dist, B, n, G,
                    M, V, F);
 }
@@ -38,7 +38,7 @@ extern "C" int collide_hull_hull(const float* pos, const float* quat,
                                  const int* g1, const int* g2, float* out_pos,
                                  float* out_nrm, float* out_dist, int B, int n,
                                  int G, int M, int V, int F, void* stream) {
-  const size_t smem = smem_bytes(M, V, F, false);
+  const size_t smem = hull_team_smem(HULL1, M, V, F);
   int grid = 0;
   const int err = team_grid(hull_hull_kernel, (long)B * n, M, V, F, smem,
                             grid);
@@ -52,5 +52,6 @@ extern "C" int collide_hull_hull(const float* pos, const float* quat,
 // resident blocks per SM, threads per block and dynamic shared memory per
 // block (bytes) for tables of (M, V, F), for the build report
 extern "C" int collide_hull_hull_occupancy(int* out, int M, int V, int F) {
-  return team_occupancy(hull_hull_kernel, out, smem_bytes(M, V, F, false));
+  return team_occupancy(hull_hull_kernel, out,
+                        hull_team_smem(HULL1, M, V, F));
 }

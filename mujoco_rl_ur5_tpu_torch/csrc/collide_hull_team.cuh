@@ -1,21 +1,28 @@
-// The team hull-hull body of collide_hull_hull.cu and collide_box_hull.cu:
-// per (pair, scenario) the least-overlap face over both sides' faces, then
-// the 8 deepest vertices of the other side along it, 8 slots. Side 2 is a
-// row of the hull table; side 1 is a row too (hull-hull) or a box made from
-// its size (box-hull: BOX1), chosen at compile time.
+// The team hull body of collide_hull_hull.cu, collide_box_hull.cu and
+// collide_plane_hull.cu: per (pair, scenario) the least-overlap face over
+// both sides' faces, then the 8 deepest vertices of the other side along
+// it, 8 slots. Side 2 is a row of the hull table; side 1 is chosen at
+// compile time (Side1): a row too (hull-hull), a box made from its size
+// (box-hull), or a plane (plane-hull), whose z axis is the winning face
+// with no face pass. collide_capsule_hull.cu shares the staging, the team
+// and the joins below.
 //
 // Design (a team of 4 lanes of one warp per instance; 2 and 8 ran no
 // faster on the H100 for hull-hull):
 //  * the block stages the model's hull table (local vertices, face normals
-//    and offsets, each mesh's real vertex and face counts) in shared memory
-//    once, then walks its instances grid-stride;
+//    and offsets, each mesh's real vertex and face counts; a plane's kernel
+//    reads no faces and stages none) in shared memory once, then walks its
+//    instances grid-stride;
 //  * each vertex and each face moves to world once per instance: the team's
 //    lanes move both sides' vertices into the instance's shared rows, and
 //    each lane moves its own faces (f = lane, lane + T, ...) into registers,
 //    with collide_common.cuh's operations, so every score keeps its bits. A
 //    box's 8 corners take collision.box_as_hull's signs (corner v: x from
 //    bit 2, y from bit 1, z from bit 0), its 6 faces the unit normals +x,
-//    +y, +z, -x, -y, -z turned by the same rotation, offsets its sizes;
+//    +y, +z, -x, -y, -z turned by the same rotation, offsets its sizes; a
+//    plane's face is its rotation's z column as it stands (collision.
+//    plane_hull's normal: turning (0, 0, 1) could change a zero's sign),
+//    its offset n . p;
 //  * the loops run over the real vertices and faces only (the counts), not
 //    the padded table: a padded face scores about -1e10 and never wins after
 //    face 0, a padded vertex scores BIG and never lowers a minimum, so
@@ -32,8 +39,8 @@
 //    plain version's sort, compared as one 64-bit key per vertex (the
 //    distance's order-preserving bits, then the index: a third fewer
 //    instructions than the float comparison with its tie rule), and the
-//    lane whose vertex has rank k < 8 writes slot k. No local memory, no
-//    atomics.
+//    lane whose vertex has rank k < 8 writes slot k from the values it
+//    holds. No local memory, no atomics.
 #pragma once
 #include "collide_common.cuh"
 
@@ -45,20 +52,71 @@ constexpr int IPB = THREADS / T;           // instances per block
 constexpr int VPL = (32 + T - 1) / T;      // ranked vertices per lane per pass
 static_assert(32 % T == 0, "a team lies within one warp");
 
+// side 1 of the team body
+enum Side1 { HULL1, BOX1, PLANE1 };
+
 // shared memory, in floats: per instance both sides' world vertices as
-// float4 rows (a table side V rows, a box 8, and 1 more: consecutive
-// instances start on other banks; .w of the deepest pass's side holds its
-// distances), then the table
-__host__ __device__ constexpr size_t inst_rows(int V, bool box1) {
-  return (box1 ? 8 : V) + V + 1;
+// float4 rows (side 1's rows1: a table row V, a box 8, a plane none; side
+// 2's V; and 1 more: consecutive instances start on other banks; .w of the
+// deepest pass's side holds its distances), then the table (its faces
+// where the kernel reads them)
+__host__ __device__ constexpr int side1_rows(Side1 s1, int V) {
+  return s1 == HULL1 ? V : (s1 == BOX1 ? 8 : 0);
 }
-__host__ __device__ constexpr size_t table_floats(int M, int V, int F) {
-  return (size_t)M * V * 3 + (size_t)M * F * 4 + 2 * (size_t)M;
+__host__ __device__ constexpr size_t inst_rows(int rows1, int V) {
+  return (size_t)rows1 + V + 1;
+}
+__host__ __device__ constexpr size_t table_floats(int M, int V, int F,
+                                                  bool faces) {
+  return (size_t)M * V * 3 + (faces ? (size_t)M * F * 4 : 0)
+         + 2 * (size_t)M;
 }
 __host__ __device__ constexpr size_t smem_bytes(int M, int V, int F,
-                                               bool box1) {
-  return (IPB * inst_rows(V, box1) * 4 + table_floats(M, V, F))
+                                               int rows1, bool faces) {
+  return (IPB * inst_rows(rows1, V) * 4 + table_floats(M, V, F, faces))
          * sizeof(float);
+}
+// the shared memory of a hull_team<s1> block
+__host__ __device__ constexpr size_t hull_team_smem(Side1 s1, int M, int V,
+                                                   int F) {
+  return smem_bytes(M, V, F, side1_rows(s1, V), s1 != PLANE1);
+}
+
+// the hull table in shared memory: verts (M, V, 3), fnorm (M, F, 3), fdist
+// (M, F) (no faces where the kernel reads none), each row's real counts
+// nv, nf (M,)
+struct Table {
+  const float* verts;
+  const float* fnorm;
+  const float* fdist;
+  const int* nv;
+  const int* nf;
+};
+
+// the block copies the table to ``tab`` (after its instances' rows), then
+// waits for every thread
+__device__ __forceinline__ Table stage_table(
+    float* tab, const float* __restrict__ verts,
+    const float* __restrict__ fnorm, const float* __restrict__ fdist,
+    const int* __restrict__ nvert, const int* __restrict__ nface, int M,
+    int V, int F, bool faces) {
+  float* s_verts = tab;
+  float* s_fnorm = s_verts + (size_t)M * V * 3;
+  float* s_fdist = s_fnorm + (faces ? (size_t)M * F * 3 : 0);
+  int* s_nv = reinterpret_cast<int*>(s_fdist + (faces ? (size_t)M * F : 0));
+  int* s_nf = s_nv + M;
+  for (int i = threadIdx.x; i < M * V * 3; i += THREADS) s_verts[i] = verts[i];
+  if (faces) {
+    for (int i = threadIdx.x; i < M * F * 3; i += THREADS)
+      s_fnorm[i] = fnorm[i];
+    for (int i = threadIdx.x; i < M * F; i += THREADS) s_fdist[i] = fdist[i];
+  }
+  for (int i = threadIdx.x; i < M; i += THREADS) {
+    s_nv[i] = nvert[i];
+    s_nf[i] = nface[i];
+  }
+  __syncthreads();
+  return {s_verts, s_fnorm, s_fdist, s_nv, s_nf};
 }
 
 __device__ __forceinline__ unsigned team_mask() {
@@ -159,10 +217,10 @@ __device__ __forceinline__ float team_best_face(const float4* wv, int nv,
 }
 
 // One block's work: hull tables verts (M, V, 3), fnorm (M, F, 3), fdist
-// (M, F), each row's real counts nvert, nface (M,); side 1 a box of size
-// size[g1] (BOX1) or the table row meshid[g1]; side 2 the row meshid[g2].
-// smem4: the block's dynamic shared memory (smem_bytes)
-template <bool BOX1>
+// (M, F), each row's real counts nvert, nface (M,); side 1 (S1) the table
+// row meshid[g1], a box of size size[g1] or a plane; side 2 the row
+// meshid[g2]. smem4: the block's dynamic shared memory (smem_bytes)
+template <Side1 S1>
 __device__ __forceinline__ void hull_team(
     float4* smem4, const float* __restrict__ pos,
     const float* __restrict__ quat, const float* __restrict__ size,
@@ -172,24 +230,14 @@ __device__ __forceinline__ void hull_team(
     const int* __restrict__ g1, const int* __restrict__ g2,
     float* __restrict__ out_pos, float* __restrict__ out_nrm,
     float* __restrict__ out_dist, int B, int n, int G, int M, int V, int F) {
-  float* tab = reinterpret_cast<float*>(smem4 + IPB * inst_rows(V, BOX1));
-  float* s_verts = tab;                              // (M, V, 3)
-  float* s_fnorm = s_verts + (size_t)M * V * 3;      // (M, F, 3)
-  float* s_fdist = s_fnorm + (size_t)M * F * 3;      // (M, F)
-  int* s_nv = reinterpret_cast<int*>(s_fdist + (size_t)M * F);
-  int* s_nf = s_nv + M;
-  for (int i = threadIdx.x; i < M * V * 3; i += THREADS) s_verts[i] = verts[i];
-  for (int i = threadIdx.x; i < M * F * 3; i += THREADS) s_fnorm[i] = fnorm[i];
-  for (int i = threadIdx.x; i < M * F; i += THREADS) s_fdist[i] = fdist[i];
-  for (int i = threadIdx.x; i < M; i += THREADS) {
-    s_nv[i] = nvert[i];
-    s_nf[i] = nface[i];
-  }
-  __syncthreads();
+  const int rows1 = side1_rows(S1, V);
+  const Table tab = stage_table(
+      reinterpret_cast<float*>(smem4 + IPB * inst_rows(rows1, V)), verts,
+      fnorm, fdist, nvert, nface, M, V, F, S1 != PLANE1);
 
   const int lane = threadIdx.x % T, team = threadIdx.x / T;
-  float4* w1 = smem4 + team * inst_rows(V, BOX1);   // side 1's world vertices
-  float4* w2 = w1 + (BOX1 ? 8 : V);                 // side 2's
+  float4* w1 = smem4 + team * inst_rows(rows1, V);  // side 1's world vertices
+  float4* w2 = w1 + rows1;                          // side 2's
   const long total = (long)B * n;
   // every thread of the block runs the same iterations: the team's
   // shuffles and the warp's barriers need all their lanes
@@ -204,51 +252,61 @@ __device__ __forceinline__ void hull_team(
     load_pose(pos, quat, b, G, a, P1);
     load_pose(pos, quat, b, G, c, P2);
     const int m2 = meshid[c];
-    const int m1 = BOX1 ? 0 : meshid[a];
-    const int nv1 = BOX1 ? 8 : s_nv[m1], nv2 = s_nv[m2];
+    const int m1 = S1 == HULL1 ? meshid[a] : 0;
+    const int nv1 = S1 == HULL1 ? tab.nv[m1] : 8, nv2 = tab.nv[m2];
     // the deepest pass ranks at least 8 vertices (padded ones at BIG)
     const int nx1 = nv1 > 8 ? nv1 : 8, nx2 = nv2 > 8 ? nv2 : 8;
     BoxFaces box{{0.f, 0.f, 0.f}};
-    if constexpr (BOX1) {
+    if constexpr (S1 == BOX1) {
       box.s[0] = size[a * 3 + 0];
       box.s[1] = size[a * 3 + 1];
       box.s[2] = size[a * 3 + 2];
     }
-    for (int v = lane; v < nx1; v += T) {
-      float o[3];
-      if constexpr (BOX1) {
-        const float vl[3] = {(v & 4) ? box.s[0] : -box.s[0],
-                             (v & 2) ? box.s[1] : -box.s[1],
-                             (v & 1) ? box.s[2] : -box.s[2]};
-        to_world(P1, vl, o);
-      } else {
-        to_world(P1, s_verts + ((size_t)m1 * V + v) * 3, o);
+    if constexpr (S1 != PLANE1) {
+      for (int v = lane; v < nx1; v += T) {
+        float o[3];
+        if constexpr (S1 == BOX1) {
+          const float vl[3] = {(v & 4) ? box.s[0] : -box.s[0],
+                               (v & 2) ? box.s[1] : -box.s[1],
+                               (v & 1) ? box.s[2] : -box.s[2]};
+          to_world(P1, vl, o);
+        } else {
+          to_world(P1, tab.verts + ((size_t)m1 * V + v) * 3, o);
+        }
+        w1[v] = make_float4(o[0], o[1], o[2], 0.f);
       }
-      w1[v] = make_float4(o[0], o[1], o[2], 0.f);
     }
     for (int v = lane; v < nx2; v += T) {
       float o[3];
-      to_world(P2, s_verts + ((size_t)m2 * V + v) * 3, o);
+      to_world(P2, tab.verts + ((size_t)m2 * V + v) * 3, o);
       w2[v] = make_float4(o[0], o[1], o[2], 0.f);
     }
     __syncwarp();
-    const TableFaces faces2{s_fnorm + (size_t)m2 * F * 3,
-                            s_fdist + (size_t)m2 * F};
-    const TableFaces faces1{s_fnorm + (size_t)m1 * F * 3,
-                            s_fdist + (size_t)m1 * F};
-    int fa, fb;
-    const float sep2 = team_best_face(w1, nv1, P2, faces2, s_nf[m2], lane,
-                                      fa);                  // face on side 2
-    float sep1;                                             // face on side 1
-    if constexpr (BOX1)
-      sep1 = team_best_face(w2, nv2, P1, box, 6, lane, fb);
-    else
-      sep1 = team_best_face(w2, nv2, P1, faces1, s_nf[m1], lane, fb);
-    const bool use2 = sep2 >= sep1;
-    float nw[3];
-    const float d = use2 ? faces2.world(P2, fa, nw)
-                         : (BOX1 ? box.world(P1, fb, nw)
-                                 : faces1.world(P1, fb, nw));
+    bool use2 = false;
+    float nw[3], d;
+    if constexpr (S1 == PLANE1) {      // the plane's z axis, as it stands
+      nw[0] = P1.R[0][2];
+      nw[1] = P1.R[1][2];
+      nw[2] = P1.R[2][2];
+      d = dot3(nw, P1.p);
+    } else {
+      const TableFaces faces2{tab.fnorm + (size_t)m2 * F * 3,
+                              tab.fdist + (size_t)m2 * F};
+      const TableFaces faces1{tab.fnorm + (size_t)m1 * F * 3,
+                              tab.fdist + (size_t)m1 * F};
+      int fa, fb;
+      const float sep2 = team_best_face(w1, nv1, P2, faces2, tab.nf[m2],
+                                        lane, fa);        // face on side 2
+      float sep1;                                         // face on side 1
+      if constexpr (S1 == BOX1)
+        sep1 = team_best_face(w2, nv2, P1, box, 6, lane, fb);
+      else
+        sep1 = team_best_face(w2, nv2, P1, faces1, tab.nf[m1], lane, fb);
+      use2 = sep2 >= sep1;
+      d = use2 ? faces2.world(P2, fa, nw)
+               : (S1 == BOX1 ? box.world(P1, fb, nw)
+                             : faces1.world(P1, fb, nw));
+    }
     float4* wv = use2 ? w1 : w2;
     const int nv = use2 ? nv1 : nv2, nx = use2 ? nx1 : nx2;
     for (int v = lane; v < nx; v += T) {
@@ -257,7 +315,8 @@ __device__ __forceinline__ void hull_team(
       wv[v].w = v < nv ? dot3(p, nw) - d : COLLIDE_BIG;
     }
     __syncwarp();
-    // vertex of 1 on a face of 2: normal -n2; vertex of 2 on a face of 1: +n1
+    // vertex of 1 on a face of 2: normal -n2; vertex of 2 on a face of 1
+    // (or under the plane): +n1
     const float nrm[3] = {use2 ? -nw[0] : nw[0], use2 ? -nw[1] : nw[1],
                           use2 ? -nw[2] : nw[2]};
     for (int v0 = lane; v0 < nx; v0 += T * VPL) {
@@ -297,7 +356,7 @@ __device__ __forceinline__ void hull_team(
 // Before a launch of ``kernel`` (a hull_team instance) over ``total``
 // instances with ``smem`` bytes of shared memory: the checks of the tables
 // (cudaErrorInvalidValue where V < 8, the table is empty or does not fit one
-// block: physics/cuda_collide.py hull_hull_smem raises before the call), the
+// block: physics/cuda_collide.py team_smem raises before the call), the
 // shared-memory attribute, and the grid (0 for no instance): at most the
 // blocks the card keeps resident
 template <class K>

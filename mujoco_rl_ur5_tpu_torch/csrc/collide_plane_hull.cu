@@ -1,41 +1,62 @@
-// Plane-hull narrowphase: one thread per (pair, scenario) writes the 8 hull
-// vertices deepest below the plane (the floor against the pile's
-// cylinders), 8 slots.
+// Plane-hull narrowphase: the 8 hull vertices deepest below the plane (the
+// floor against the pile's cylinders and the finger pads), 8 slots, on the
+// team body of collide_hull_team.cuh (its design notes are there) with a
+// plane on side 1: no face pass, the winning face the plane's z axis, and
+// the body's deepest pass over the hull's real vertices, each moved to world
+// once and written from the values its lane holds.
 //
 // Replaces the TPU kernel mujoco_rl_ur5_tpu/physics/pallas_collide.py
 // plane_hull_batched (:715; body _make_plane_hull_body :564). Bound: bytes
-// (about 20 f32 operations per vertex against 224 bytes written per
-// instance); the vertices are read by id and the top 8 kept in registers.
-#include "collide_common.cuh"
+// (about 25 f32 operations per vertex against 224 bytes written per
+// instance). The kernel reads the table's vertices and vertex counts only;
+// it takes hull-hull's argument list.
+#include "collide_hull_team.cuh"
 
-__global__ void plane_hull_kernel(COLLIDE_PARAMS) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= B * n) return;
-  const int b = tid / n;
-  const int a = g1[tid], c = g2[tid];
-  Pose P1, P2;
-  load_pose(pos, quat, b, G, a, P1);
-  load_pose(pos, quat, b, G, c, P2);
-  const Hull h2 = table_hull(verts, vmask, fnorm, fdist, meshid[c], V, F);
-  const float nz[3] = {P1.R[0][2], P1.R[1][2], P1.R[2][2]};  // plane z
-  const float off = dot3(nz, P1.p);
-  TopK<8> top;
-  for (int v = 0; v < h2.V; ++v) {
-    float vl[3], vw[3];
-    const bool real = hull_vert(h2, v, vl);
-    to_world(P2, vl, vw);
-    top.push(real ? dot3(vw, nz) - off : COLLIDE_BIG, v);
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    float vl[3], vw[3], p[3];
-    hull_vert(h2, top.i[k], vl);
-    to_world(P2, vl, vw);
-    const float dk = top.d[k];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) p[r] = vw[r] - 0.5f * dk * nz[r];
-    store(out_pos, out_nrm, out_dist, (size_t)tid * 8 + k, p, nz, dk);
-  }
+__global__ void __launch_bounds__(THREADS)
+plane_hull_kernel(const float* __restrict__ pos,
+                  const float* __restrict__ quat,
+                  const int* __restrict__ meshid,
+                  const float* __restrict__ verts,
+                  const float* __restrict__ fnorm,
+                  const float* __restrict__ fdist,
+                  const int* __restrict__ nvert, const int* __restrict__ nface,
+                  const int* __restrict__ g1, const int* __restrict__ g2,
+                  float* __restrict__ out_pos, float* __restrict__ out_nrm,
+                  float* __restrict__ out_dist, int B, int n, int G, int M,
+                  int V, int F) {
+  extern __shared__ float4 smem4[];
+  hull_team<PLANE1>(smem4, pos, quat, nullptr, meshid, verts, fnorm, fdist,
+                    nvert, nface, g1, g2, out_pos, out_nrm, out_dist, B, n,
+                    G, M, V, F);
 }
 
-COLLIDE_ENTRY(plane_hull)
+// plane geoms g1; hull tables verts (M, V, 3) with each row's real vertex
+// count nvert (M,) int32 of geoms g2 (fnorm, fdist and nface are not read);
+// the rest as COLLIDE_PARAMS. Returns cudaErrorInvalidValue where the table
+// does not fit one block's shared memory (physics/cuda_collide.py raises
+// before the call)
+extern "C" int collide_plane_hull(const float* pos, const float* quat,
+                                  const int* meshid, const float* verts,
+                                  const float* fnorm, const float* fdist,
+                                  const int* nvert, const int* nface,
+                                  const int* g1, const int* g2,
+                                  float* out_pos, float* out_nrm,
+                                  float* out_dist, int B, int n, int G, int M,
+                                  int V, int F, void* stream) {
+  const size_t smem = hull_team_smem(PLANE1, M, V, F);
+  int grid = 0;
+  const int err = team_grid(plane_hull_kernel, (long)B * n, M, V, F, smem,
+                            grid);
+  if (err != 0 || grid == 0) return err;
+  plane_hull_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      pos, quat, meshid, verts, fnorm, fdist, nvert, nface, g1, g2, out_pos,
+      out_nrm, out_dist, B, n, G, M, V, F);
+  return (int)cudaGetLastError();
+}
+
+// resident blocks per SM, threads per block and dynamic shared memory per
+// block (bytes) for tables of (M, V, F), for the build report
+extern "C" int collide_plane_hull_occupancy(int* out, int M, int V, int F) {
+  return team_occupancy(plane_hull_kernel, out,
+                        hull_team_smem(PLANE1, M, V, F));
+}

@@ -21,12 +21,13 @@ kernels read the poses and the small hull tables by id, where the TPU
 kernel was handed per-pair copies of every table (the JAX package gathers
 (B, 64, 32, 3) vertex tables per capped group). Box-box gives each
 (pair, scenario) a team of ``BOX_TEAM`` lanes (one corner each; the SAT
-axes split between them); hull-hull and box-hull share one team body
-(csrc/collide_hull_team.cuh, a box made from its size on side 1 of
-box-hull): a team of ``HULL_TEAM`` lanes per (pair, scenario), the table
-staged in shared memory, the loops over each row's real vertices and faces
-(``Hulls.nvert``/``nface``); plane-hull, sphere-hull and capsule-hull run
-one thread per (pair, scenario). Each returns pos
+axes split between them); hull-hull, box-hull and plane-hull share one team
+body (csrc/collide_hull_team.cuh; side 1 a box made from its size for
+box-hull, a plane for plane-hull) and capsule-hull takes its staging,
+team and joins for its five probes: a team of ``HULL_TEAM`` lanes per
+(pair, scenario), the table staged in shared memory, the loops over each
+row's real vertices and faces (``Hulls.nvert``/``nface``); sphere-hull
+runs one thread per (pair, scenario). Each returns pos
 (B, n, K, 3), normal (B, n, K, 3) and dist (B, n, K), K = 9 for box-box,
 8 for hull-hull, box-hull and plane-hull, 1 for sphere-hull and 5 for
 capsule-hull, with physics/collision.py's arithmetic, operation
@@ -64,7 +65,7 @@ class Hulls(NamedTuple):
     """The model's hull tables and each geom's row in them. Each row keeps
     its real vertices and faces first (scene/compile.py lays the tables out
     so); ``nvert`` and ``nface`` are their counts (``hull_counts``), which
-    the hull-hull and box-hull kernels loop over and take as given."""
+    the team hull kernels (``TEAM``) loop over and take as given."""
 
     meshid: torch.Tensor   # (G,) int, -1 for a geom that is no hull
     verts: torch.Tensor    # (M, V, 3)
@@ -137,11 +138,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pos, quat, size, meshid, verts, vmask, fnorm, fdist, g1, g2,
 # out_pos, out_nrm, out_dist, B, n, G, V, F, stream
 _ARGS = (_P,) * 13 + (_I,) * 5 + (_P,)
-# the team hull kernels: pos, quat, [size: box_hull], meshid, verts, fnorm,
-# fdist, nvert, nface, g1, g2, out_pos, out_nrm, out_dist, B, n, G, M, V, F,
-# stream
-_TEAM_ARGS = {"hull_hull": (_P,) * 13 + (_I,) * 6 + (_P,),
-              "box_hull": (_P,) * 14 + (_I,) * 6 + (_P,)}
+# each team hull kernel's output slots, and whether it reads size; its
+# arguments: pos, quat, [size], meshid, verts, fnorm, fdist, nvert, nface,
+# g1, g2, out_pos, out_nrm, out_dist, B, n, G, M, V, F, stream
+TEAM = {"hull_hull": (8, False), "box_hull": (8, True),
+        "plane_hull": (8, False), "capsule_hull": (5, True)}
 BOX_TEAM = 8    # lanes per (pair, scenario) of csrc/collide_box_box.cu
 HULL_TEAM = 4   # lanes per (pair, scenario) of csrc/collide_hull_team.cuh
 _HEADERS = ("collide_common.cuh", "collide_hull_team.cuh")
@@ -158,7 +159,8 @@ def source(kernel: str) -> _build.KernelSource:
             headers[name] = f.read()
     return _build.KernelSource(
         f"collide_{kernel}", f"collide_{kernel}",
-        _TEAM_ARGS.get(kernel, _ARGS), headers, flags=("-fmad=false",))
+        (_P,) * (13 + TEAM[kernel][1]) + (_I,) * 6 + (_P,)
+        if kernel in TEAM else _ARGS, headers, flags=("-fmad=false",))
 
 
 def kernel_sources() -> list:
@@ -223,20 +225,26 @@ def _launch(wrapper, kernel: str, K: int, pos, quat, size, hulls, g1, g2):
     return out_pos, out_nrm, out_dist
 
 
-def hull_hull_smem(M: int, V: int, F: int, box1: bool = False) -> int:
-    """Shared memory (bytes) one hull-hull block (box-hull: ``box1``)
-    takes for tables of M rows of V vertices and F faces: its 128 /
-    HULL_TEAM instances' world vertices (V + V + 1 rows of 16 bytes each,
-    8 + V + 1 with a box on side 1) and the staged table (csrc
+def team_smem(kernel: str, M: int, V: int, F: int) -> int:
+    """Shared memory (bytes) one block of a team hull kernel takes for
+    tables of M rows of V vertices and F faces: its 128 / HULL_TEAM
+    instances' world vertices in rows of 16 bytes (side 1's, side 2's V and
+    1 more: hull-hull V + V + 1, box-hull 8 + V + 1; plane-hull and
+    capsule-hull, with no vertices on side 1, V + 1), then the staged table
+    (the vertices, each row's counts and, except for plane-hull, which
+    reads no faces, the face normals and offsets; csrc
     collide_hull_team.cuh smem_bytes)."""
-    rows = (8 if box1 else V) + V + 1
-    return (128 // HULL_TEAM * rows * 4 + M * V * 3 + M * F * 4
-            + 2 * M) * 4
+    rows = {"hull_hull": V, "box_hull": 8}.get(kernel, 0) + V + 1
+    faces = 0 if kernel == "plane_hull" else M * F * 4
+    return (128 // HULL_TEAM * rows * 4 + M * V * 3 + faces + 2 * M) * 4
 
 
-def _team_launch(kernel: str, pos, quat, size, hulls: Hulls, g1, g2):
-    """One launch of the team hull body (``kernel`` hull_hull, or box_hull
-    with the boxes' sizes), counted in its wrapper's ``launches``."""
+def team_launch(kernel: str, pos, quat, size, hulls: Hulls, g1, g2):
+    """One launch of a team hull kernel (``TEAM``; ``size`` is read by
+    box-hull and capsule-hull), counted in its wrapper's ``launches``. The
+    kernel loops over each row's real vertices and faces,
+    ``hulls.nvert``/``hulls.nface`` (raises without them), and stages the
+    table in one block's shared memory: raises where it does not fit."""
     B, G = pos.shape[0], pos.shape[1]
     n = g1.shape[-1]
     dev = pos.device
@@ -249,14 +257,14 @@ def _team_launch(kernel: str, pos, quat, size, hulls: Hulls, g1, g2):
     if hulls.nvert is None or hulls.nface is None:
         raise ValueError(f"{kernel}: the kernel takes each row's real vertex "
                          "and face counts (Hulls.nvert, Hulls.nface)")
-    box1 = kernel == "box_hull"
-    need = hull_hull_smem(M, V, F, box1)
+    need = team_smem(kernel, M, V, F)
     if need > _SMEM_BLOCK:
         raise ValueError(f"{kernel}: tables of {M} rows x {V} vertices x "
                          f"{F} faces need {need} bytes of shared memory, a "
                          f"block has {_SMEM_BLOCK}")
+    K, sized = TEAM[kernel]
     sizes = ()
-    if box1:
+    if sized:
         size = size.contiguous()
         if size.shape != (G, 3):
             raise ValueError(f"{kernel}: size (G, 3) expected, got "
@@ -268,7 +276,7 @@ def _team_launch(kernel: str, pos, quat, size, hulls: Hulls, g1, g2):
     counts = [c.to(device=dev, dtype=torch.int32).contiguous()
               for c in (hulls.nvert, hulls.nface)]
     ids = _ids(g1, g2, B, n, dev)
-    out_pos, out_nrm, out_dist = _outputs(B, n, 8, dev)
+    out_pos, out_nrm, out_dist = _outputs(B, n, K, dev)
     if B * n:
         _build.call(source(kernel), pos.data_ptr(), quat.data_ptr(), *sizes,
                     meshid.data_ptr(), verts.data_ptr(), fnorm.data_ptr(),
@@ -277,24 +285,8 @@ def _team_launch(kernel: str, pos, quat, size, hulls: Hulls, g1, g2):
                     ids[1].data_ptr(), out_pos.data_ptr(),
                     out_nrm.data_ptr(), out_dist.data_ptr(), B, n, G, M, V, F,
                     _stream(pos))
-        (box_hull_batched if box1 else hull_hull_batched).launches += 1
+        _BY_KERNEL[kernel].launches += 1
     return out_pos, out_nrm, out_dist
-
-
-def hull_hull_launch(pos, quat, hulls: Hulls, g1, g2):
-    """One csrc/collide_hull_hull.cu launch, counted in
-    ``hull_hull_batched.launches``. The kernel loops over each row's real
-    vertices and faces, ``hulls.nvert``/``hulls.nface`` (raises without
-    them), and stages the whole table in one block's shared memory: raises
-    where it does not fit."""
-    return _team_launch("hull_hull", pos, quat, None, hulls, g1, g2)
-
-
-def box_hull_launch(pos, quat, size, hulls: Hulls, g1, g2):
-    """One csrc/collide_box_hull.cu launch (the boxes g1 from their sizes,
-    the hulls g2 from the tables), counted in ``box_hull_batched.launches``,
-    with ``hull_hull_launch``'s checks."""
-    return _team_launch("box_hull", pos, quat, size, hulls, g1, g2)
 
 
 def _wrapper(kernel: str, K: int, plain, doc: str):
@@ -305,10 +297,8 @@ def _wrapper(kernel: str, K: int, plain, doc: str):
     def batched(pos, quat, size, hulls, g1, g2):
         if not _route(pos, quat, size):
             return plain(pos, quat, size, hulls, g1, g2)
-        if kernel == "hull_hull":
-            return hull_hull_launch(pos, quat, hulls, g1, g2)
-        if kernel == "box_hull":
-            return box_hull_launch(pos, quat, size, hulls, g1, g2)
+        if kernel in TEAM:
+            return team_launch(kernel, pos, quat, size, hulls, g1, g2)
         return _launch(batched, kernel, K, pos, quat, size,
                        hulls if tables else None, g1, g2)
     batched.__name__ = batched.__qualname__ = f"{kernel}_batched"
@@ -346,3 +336,4 @@ BATCHED = {
     (collision.GEOM_BOX, collision.GEOM_MESH): box_hull_batched,
     (collision.GEOM_MESH, collision.GEOM_MESH): hull_hull_batched,
 }
+_BY_KERNEL = {w.__name__[: -len("_batched")]: w for w in BATCHED.values()}

@@ -124,10 +124,9 @@ def test_kernel_sources_are_in_the_package():
     for s in srcs:
         assert "collide_common.cuh" in s.headers
         k = s.entry[len("collide_"):]
-        # the team kernels launch otherwise: hull-hull and box-hull have
+        # the team kernels launch otherwise: the team hull kernels have
         # their own entries (real counts, the table in shared memory, a
         # grid-stride launch), box-box a team of lanes per instance
-        entry = {"hull_hull": f'extern "C" int {s.entry}(',
-                 "box_hull": f'extern "C" int {s.entry}(',
-                 "box_box": "COLLIDE_ENTRY_IPB(box_box, IPB)"}
+        entry = {k: f'extern "C" int {s.entry}(' for k in cc.TEAM}
+        entry["box_box"] = "COLLIDE_ENTRY_IPB(box_box, IPB)"
         assert entry.get(k, f"COLLIDE_ENTRY({k})") in s.text

@@ -175,17 +175,17 @@ def test_model_hulls_carry_real_counts_first(scene):
 def test_hull_hull_launch_needs_the_counts():
     pos, quat, hulls, g1, g2 = _problem()
     with pytest.raises(ValueError, match="counts"):
-        cuda_collide.hull_hull_launch(pos, quat, hulls._replace(nvert=None),
-                                      g1, g2)
+        cuda_collide.team_launch("hull_hull", pos, quat, None,
+                                 hulls._replace(nvert=None), g1, g2)
 
 
 def test_hull_hull_raises_where_the_table_does_not_fit():
     """The table is staged in one block's shared memory: a table too large
     for it raises before any build or launch."""
     pos, quat, hulls, g1, g2 = _problem()
-    assert cuda_collide.hull_hull_smem(11, 32, 34) < 48 * 1024
+    assert cuda_collide.team_smem("hull_hull", 11, 32, 34) < 48 * 1024
     M = 2000
     big = cuda_collide.Hulls(hulls.meshid, *(t[:1].expand((M,) + t.shape[1:])
                                              for t in hulls[1:]))
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_collide.hull_hull_launch(pos, quat, big, g1, g2)
+        cuda_collide.team_launch("hull_hull", pos, quat, None, big, g1, g2)

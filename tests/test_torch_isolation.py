@@ -273,8 +273,8 @@ def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
     outs = [torch.empty(B, n, K, 3), torch.empty(B, n, K, 3),
             torch.empty(B, n, K)]
     ids = [g1.to(torch.int32), g2.to(torch.int32)]
-    if kernel in ("hull_hull", "box_hull"):   # real counts, table staged
-        sizes = [size] if kernel == "box_hull" else []
+    if kernel in cuda_collide.TEAM:           # real counts, table staged
+        sizes = [size] if cuda_collide.TEAM[kernel][1] else []
         keep = [pos, quat, *sizes, hulls.meshid.to(torch.int32), hulls.verts,
                 hulls.fnorm, hulls.fdist,
                 *cuda_collide.hull_counts(hulls.vmask, hulls.fdist), *ids,
@@ -312,20 +312,40 @@ def test_box_hull_launch_needs_the_counts():
     pos, quat, size, hulls, g1, g2 = _box_hull_operands()
     for missing in ("nvert", "nface"):
         with pytest.raises(ValueError, match="counts"):
-            cuda_collide.box_hull_launch(pos, quat, size,
-                                         hulls._replace(**{missing: None}),
-                                         g1, g2)
+            cuda_collide.team_launch("box_hull", pos, quat, size,
+                                     hulls._replace(**{missing: None}), g1,
+                                     g2)
 
 
 def test_box_hull_raises_where_the_table_does_not_fit():
     """Box-hull stages the hull table in one block's shared memory, as
     hull-hull does (with 8 rows for the box's corners in place of V): a
     table too large for it raises before any build or launch."""
-    assert (cuda_collide.hull_hull_smem(11, 32, 34, box1=True)
-            == cuda_collide.hull_hull_smem(11, 32, 34) - 32 * 24 * 16)
+    assert (cuda_collide.team_smem("box_hull", 11, 32, 34)
+            == cuda_collide.team_smem("hull_hull", 11, 32, 34) - 32 * 24 * 16)
     pos, quat, size, hulls, g1, g2 = _box_hull_operands(M=2000)
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_collide.box_hull_launch(pos, quat, size, hulls, g1, g2)
+        cuda_collide.team_launch("box_hull", pos, quat, size, hulls, g1, g2)
+
+
+@pytest.mark.parametrize("kernel", ["plane_hull", "capsule_hull"])
+def test_probe_launch_needs_the_counts_and_a_table_that_fits(kernel):
+    """Plane-hull and capsule-hull take the team launch's checks: each
+    row's real counts, and a table staged in one block's shared memory
+    (plane-hull stages no faces: V + 1 rows per instance and the vertices;
+    capsule-hull also the faces)."""
+    pos, quat, size, hulls, g1, g2 = _box_hull_operands()
+    for missing in ("nvert", "nface"):
+        with pytest.raises(ValueError, match="counts"):
+            cuda_collide.team_launch(kernel, pos, quat, size,
+                                     hulls._replace(**{missing: None}), g1,
+                                     g2)
+    faces = 0 if kernel == "plane_hull" else 11 * 34 * 16
+    assert (cuda_collide.team_smem(kernel, 11, 32, 34)
+            == 32 * 33 * 16 + 11 * 32 * 12 + faces + 11 * 8)
+    pos, quat, size, hulls, g1, g2 = _box_hull_operands(M=2000)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_collide.team_launch(kernel, pos, quat, size, hulls, g1, g2)
 
 
 def test_raycast_kernel_source_runs_on_the_host(tmp_path):
