@@ -10,13 +10,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (five kernels; rollout_closed once with the track costs and once with
      the reach costs), the six collide kernels and the ray cast, one nvcc
      per source, in parallel, with the build time and ptxas's register,
-     stack and spill report (lqr_backward and the five team collide
-     kernels, box_box, hull_hull, box_hull, plane_hull and capsule_hull,
-     must spill nothing, the five collide kernels use no stack), and the
-     resident blocks per SM, threads and shared memory per block of the
-     ten redesigned kernels (lqr_backward, rollout_closed, lin_fd,
-     rollout_open, the five team collide kernels and the ray cast; the
-     hull kernels and the ray cast at the object pile's table sizes);
+     stack and spill report (lqr_backward and the six team collide
+     kernels, box_box, hull_hull, box_hull, plane_hull, sphere_hull and
+     capsule_hull, must spill nothing, the six collide kernels use no
+     stack), and the resident blocks per SM, threads and shared memory per
+     block of the twelve redesigned kernels (lqr_backward, rollout_closed,
+     lin_fd, rollout_open, ee_quad_gn, the six team collide kernels and
+     the ray cast; the hull kernels and the ray cast at the object pile's
+     table sizes);
   3. kernels: each kernel's wrapper at the shapes the main paths give it
      (B=4096, H=64, substeps=8), held against its plain PyTorch version on
      the same inputs on the card, output by output, with the tolerance
@@ -28,14 +29,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the composition in torch after it; the full-knot differences (lin_fd)
      are held over one substep and, at B=509, over eight. rollout_closed is
      held with both fused costs, and its costs also against the plain cost
-     of the candidates it returned; ee_quad_gn's assembly into the full
-     stage Hessians is timed beside it. rollout_open (a team of 8 lanes
+     of the candidates it returned. ee_quad_gn writes the full stage
+     blocks X (B, H, 16, 16) and g (B, H, 16) from the solver's strided
+     view of its states: held whole, with exact zeros off the blocks and
+     w_vel on the velocity diagonal, it must launch nothing but its kernel,
+     and the reach quadratization around it (_reach_quad_batch_kernel) is
+     timed beside it. rollout_open (a team of 8 lanes
      per scenario) is held at B=4096 and B=509, twice to the bit and timed
      on the device, beside the latency floors of the one-thread substep
      and (a hand-counted estimate) the team's. The redesigned kernels are
      also held at a ragged batch (B=509; H=8 for rollout_open and
-     rollout_closed, whose plain versions are launch-bound), called twice
-     on the same inputs (equal to
+     rollout_closed, whose plain versions are launch-bound; ee_quad_gn at
+     B=509 over all knots), called twice on the same inputs (equal to
      the bit), timed on the device under torch.profiler and printed beside
      their earlier times;
   4. main paths at B=4096, H=64, substeps=8, iters=6, each with every launch
@@ -85,10 +90,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      the bin by family, the rest gap and the largest speeds; two 5-step
      rolls that must agree to the bit; all six collide kernels against
      their plain versions at the settled pile's shapes, timed beside their
-     plain versions and bounds, with two planted faults which the
+     plain versions and bounds, with three planted faults which the
      comparison must flag (hull_hull with the finger pad's face count one
-     short, capsule_hull with every row one face short; the pad meets no
-     box, so box_hull's fault runs in phase 7); the step at
+     short, sphere_hull and capsule_hull with every row one face short; the
+     pad meets no box, so box_hull's fault runs in phase 7); the step at
      iterations=100
      (median of 3 calls of 25 steps from the seeded drop, one launch of
      each collide kernel per step, the calls equal to the bit); one step
@@ -118,7 +123,8 @@ Each phase's wall time and the whole run's are printed as it ends.
 
     python3 chip_smoke.py --dump-settle PATH   also writes the settle roll's
                                                fastest scenarios to PATH
-    python3 chip_smoke.py --solve-times ROOT   only times phase 4's solves with
+    python3 chip_smoke.py --solve-times ROOT   only times phase 4's solves and
+                                               the reach quadratization with
                                                the package of the checkout at
                                                ROOT (to compare two trees in
                                                one call: old, new, new, old)
@@ -257,9 +263,10 @@ def device_ms(fn, kernel: str, reps: int = 20):
             / sum(e.count for e in ev) / 1e3)
 
 
-def device_kernels(fn) -> dict:
-    """{kernel name: launches} on the card during one call of ``fn`` under
-    torch.profiler."""
+def device_kernels(fn, reps: int = 1) -> dict:
+    """{kernel name: launches} on the card during ``reps`` calls of ``fn``
+    under torch.profiler (the profiler may drop the events of a single
+    short call: take several)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -267,7 +274,8 @@ def device_kernels(fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     return {e.key: e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total}
@@ -434,17 +442,18 @@ def collide_flops(kernel: str, V: int, F: int, team: int = 1,
     all ``vpad`` vertices of the table row (the padded ones too, for the
     plain version's masked sum), three lanes sum one coordinate each (an
     addition per vertex, a multiplication by 0 per padded one), every lane
-    forms the probe centres, and the team reduces five maxima. Call it with
-    the hulls' real vertex and face counts for what the function needs and
-    what the team kernels execute, with the padded ones for what the
-    one-thread sphere-hull kernel executes."""
+    forms the probe centres, and the team reduces five maxima;
+    sphere-hull's lanes each form the hull's pose (its centre is the
+    sphere's position, no rotation) and the team reduces one maximum. Call
+    it with the hulls' real vertex and face counts (``vpad`` the table's
+    padded width)."""
     pose = 2 * 36
     steps = 3 * (team.bit_length() - 1)     # one team reduction, per lane
     Vx = max(V, 8)
     ranks = Vx * 7 + team * Vx * 4 + Vx * Vx * 3 + 8 * 7
     if kernel == "sphere_hull":
-        n = 36 + F * (20 + 7) + 12
-        return n, n + 36
+        return (36 + F * (20 + 7) + 12,
+                team * 36 + F * (20 + 7) + team * steps + 20 + 12)
     if kernel == "capsule_hull":
         return (pose + V * 24 + 4 + 48 + F * (20 + 5 * 7) + 5 * 12,
                 team * pose + vpad * 18 + 3 * vpad + 3 * (vpad - V)
@@ -629,6 +638,7 @@ ONE_THREAD = {"box_box": ((0.331, 0.316), (0.331, 0.317)),
               "hull_hull": ((2.313, 2.292), (2.681, 2.665)),
               "box_hull": ((0.646, 0.626), (0.467, 0.454)),
               "plane_hull": ((0.113, 0.090), (0.075, 0.050)),
+              "sphere_hull": (None, (0.116, 0.021)),
               "capsule_hull": (None, (0.156, 0.144))}
 
 
@@ -640,8 +650,8 @@ def collide_rows(log, model, state, faults=()) -> dict:
     planted fault which the comparison must flag: hull-hull and box-hull
     with every hull row of the most faces one face short (the object
     pile's finger pad; each of the box pile's prisms, which lose their
-    bottom caps), capsule-hull with every row one face short, plane-hull
-    with every row one vertex short, box-box with the box sizes 0.1%
+    bottom caps), sphere-hull and capsule-hull with every row one face
+    short, plane-hull with every row one vertex short, box-box with the box sizes 0.1%
     small. Returns their rows of the kernel table (launches still None)."""
     from mujoco_rl_ur5_tpu_torch.physics import (
         collision, constraints, cuda_collide,
@@ -686,8 +696,7 @@ def collide_rows(log, model, state, faults=()) -> dict:
             Vr = float(model.hull_vmask[mesh].sum(-1).mean())
             Fr = float((model.hull_fdist[mesh] < 1e9).sum(-1).float().mean())
         need = collide_flops(name, Vr, Fr)[0]
-        executed = (collide_flops(name, Vr, Fr, teams[name], V)[1]
-                    if name in teams else collide_flops(name, V, F)[1])
+        executed = collide_flops(name, Vr, Fr, teams[name], V)[1]
         ops = B * n * need
         nbyte = nbytes(cpos, cquat, g1.int(), g2.int(), *got)
         t_bytes = nbyte / PEAK_BYTES_PER_S * 1e3
@@ -731,7 +740,7 @@ def collide_rows(log, model, state, faults=()) -> dict:
             faulty_hulls = hulls._replace(nvert=hulls.nvert - 1)
         else:
             short = hulls.nface.clone()
-            if name == "capsule_hull":
+            if name in ("sphere_hull", "capsule_hull"):
                 what, most = "every row one face short", slice(None)
             else:
                 most = (short == short.max()).nonzero().flatten().tolist()
@@ -1049,9 +1058,10 @@ def object_pile(log):
     rolls_agree(log, model, state, warm)
 
     # 9b. the six collide kernels at the settled pile's shapes, and the
-    # planted faults of hull-hull and capsule-hull (the pile's capsules)
+    # planted faults of hull-hull, sphere-hull and capsule-hull (the pile's
+    # spheres and capsules)
     rows = collide_rows(log, model, state,
-                       faults=("hull_hull", "capsule_hull"))
+                       faults=("hull_hull", "sphere_hull", "capsule_hull"))
     if set(rows) != set(OBJ_COLLIDE):
         raise AssertionError(f"collide groups {sorted(rows)}, expected "
                              f"{sorted(OBJ_COLLIDE)}")
@@ -1462,6 +1472,15 @@ def solve_times(root: str) -> int:
     out = timed_solves(mpc, xr0, targets, x0, q_refs)
     log(f"solve times of {root} (ms per call of {B}, median of 3): "
         + ", ".join(f"{k} {v:.1f}" for k, v in out.items()))
+    # the reach quadratization as the solver calls it, on the gravity
+    # hold's rollout: X, g, U, r of every knot (CUDA events, 20 calls)
+    from mujoco_rl_ur5_tpu_torch.physics import cuda_chain as cc
+    u = mpc._hold_init(xr0)
+    xs = cc.rollout_open(mpc.plan, SUBSTEPS, xr0, u)
+    quad_ms = event_ms(
+        lambda: mpc._reach_quad_batch_kernel(xs[:, :-1], u, targets), 20)
+    log(f"reach quadratization of {root} (_reach_quad_batch_kernel, "
+        f"B={B}, H={H}): {quad_ms:.4f} ms per call")
     return 0
 
 
@@ -1538,9 +1557,10 @@ def main() -> int:
     tables = tuple(host.hull_verts.shape[:2]) + (host.hull_fnorm.shape[1],)
     occ_args = {"lqr_backward": (), "chain_lin_fd": (),
                 "chain_rollout_closed": (len(ALPHAS),),
-                "chain_rollout_open": (),
+                "chain_rollout_open": (), "chain_ee_quad_gn": (),
                 "collide_hull_hull": tables, "collide_box_hull": tables,
-                "collide_plane_hull": tables, "collide_capsule_hull": tables,
+                "collide_plane_hull": tables, "collide_sphere_hull": tables,
+                "collide_capsule_hull": tables,
                 "collide_box_box": (),
                 "raycast": (host.topo.ngeom, host.hull_fnorm.shape[1],
                             int((host.topo.geom_type == GEOM_MESH).sum()))}
@@ -1552,7 +1572,7 @@ def main() -> int:
             f"blocks of {threads} threads per SM, {smem} bytes of shared "
             f"memory per block")
     del host
-    # no spill; and no stack frame for the five team collide kernels
+    # no spill; and no stack frame for the six team collide kernels
     for what, src in (("lqr_backward", cuda_lqr.SOURCE),
                       *((k, cuda_collide.source(k))
                         for k in ("box_box", *cuda_collide.TEAM))):
@@ -1582,7 +1602,7 @@ def main() -> int:
     track_ops = cc.cost_header(mpc._k_track, plan.nv, nu, nx, nx).ops
     reach_ops = cc.cost_header(mpc._k_reach, plan.nv, nu, 0, 3).ops
     quad_cfg = (mpc.ee_slot, EE_OFFSET, w.w_ee_run, w.w_orient, w.w_posture,
-                mpc.home)
+                w.w_vel, mpc.home)
     quad_ops = cc.ee_quad_header(plan, *cc._quad_cfg(*quad_cfg)).ops["quad"]
     A = len(ALPHAS)
     table = {}
@@ -1852,24 +1872,78 @@ def main() -> int:
     del g, F, L, X, U, xk, xs
 
     # the reach path's two: ee_quad_gn, and rollout_closed with the reach
-    # costs (an FK inside every stage cost)
+    # costs (an FK inside every stage cost). ee_quad_gn writes the solver's
+    # full stage blocks from its strided view of the states (xs[:, :-1]):
+    # held whole by phase 3's rule, with exact zeros off the blocks and
+    # w_vel on the velocity diagonal, at B=4096 and at a ragged B=509
+    # (no multiple of a block's 128 instances), twice to the bit, and one
+    # call must launch nothing but its kernel
     xs = cc.rollout_open(plan, SUBSTEPS, xr0, ur_hold)
-    xk, uk = xs[:, :-1].contiguous(), ur_hold
-    Xq, gq = cc.ee_quad_gn(plan, *quad_cfg, xk, targets)
+    xk, uk = xs[:, :-1], ur_hold
+
+    def quad(*a):
+        return cc.ee_quad_gn(plan, *quad_cfg, *(a or (xk, targets)))
+
+    def exact_blocks(what, X, g, x):
+        vel = torch.zeros(nq, nq, device=dev)
+        vel.diagonal()[:] = w.w_vel
+        ok = (not bool(X[..., :nq, nq:].any())
+              and not bool(X[..., nq:, :nq].any())
+              and torch.equal(X[..., nq:, nq:], vel.expand_as(X[..., nq:,
+                                                                nq:]))
+              and torch.equal(g[..., nq:], w.w_vel * x[..., nq:]))
+        log(f"  {what}: zeros off the blocks, w_vel on the velocity "
+            f"diagonal and w_vel qd exact: {ok}")
+        if not ok:
+            raise AssertionError(f"{what}: the constant blocks are not exact")
+
+    X, gq = quad()
     diff, plain_ms = compare(
-        "ee_quad_gn", ("Xq", "gq"), (Xq, gq),
+        "ee_quad_gn", ("X", "g"), (X, gq),
         lambda *a: cc.ee_quad_gn_plain(plan, *quad_cfg, *(a or (xk, targets))),
         f64(xk, targets))
+    exact_blocks("ee_quad_gn", X, gq, xk)
+    repeats("ee_quad_gn", quad, (X, gq))
+    rb = (xk[:509], targets[:509].contiguous())
+    r509 = quad(*rb)
+    compare("ee_quad_gn (B=509)", ("X", "g"), r509,
+            lambda *a: cc.ee_quad_gn_plain(plan, *quad_cfg, *(a or rb)),
+            f64(*rb))
+    exact_blocks("ee_quad_gn (B=509)", *r509, rb[0])
+    repeats("ee_quad_gn (B=509)", lambda: quad(*rb), r509)
+    del r509, rb
+    # one launch of its kernel per call, and no other kernel: over `reps`
+    # calls the profiler must see ee_quad_gn_kernel alone, at most `reps`
+    # times (it may drop the events of such short calls: 50 more calls
+    # where it saw none), and the wrapper count one launch per call
+    for reps in (10, 50):
+        n0 = cc.ee_quad_gn.launches
+        launched = device_kernels(quad, reps)
+        counted = cc.ee_quad_gn.launches - n0 - 1    # past the warm-up call
+        if launched:
+            break
+    log(f"  ee_quad_gn launches on the card, {reps} calls: {launched}; the "
+        f"wrapper counted {counted}")
+    if (len(launched) != 1 or "ee_quad_gn_kernel" not in next(iter(launched))
+            or not 1 <= next(iter(launched.values())) <= reps
+            or counted != reps):
+        raise AssertionError("ee_quad_gn launched more than its kernel")
+    # the bound without the assembly: the q half read, the Gauss-Newton
+    # block and g's first nq entries written (the kernel before this design)
+    bare = nbytes(xk[..., :nq], targets, X[..., :nq, :nq], gq[..., :nq])
     record("ee_quad_gn", "mujoco_rl_ur5_tpu_torch/csrc/chain_ee_quad_gn.cu",
            "mujoco_rl_ur5_tpu/physics/pallas_chain.py:885", diff,
-           event_ms(lambda: cc.ee_quad_gn(plan, *quad_cfg, xk, targets), 10),
-           plain_ms, B * H * quad_ops,
-           nbytes(xk[..., :nq], targets, Xq, gq))     # it reads the q half only
+           event_ms(quad, 10), plain_ms, B * H * quad_ops,
+           nbytes(xk, targets, X, gq), device_ms(quad, "ee_quad_gn_kernel"),
+           f"; bound without the assembly {bare / PEAK_BYTES_PER_S * 1e3:.4f}"
+           " ms; the kernel before this design, batch-fastest with its "
+           "transposes: 0.143 ms per call (device 0.0316)")
     quad_ms = event_ms(lambda: reach_quad(xk, uk), 10)
-    log(f"  ee_quad_gn with the assembly of X (B,H,{nx},{nx}), g, U, r around "
-        f"it (_reach_quad_batch_kernel): {quad_ms:.3f} ms, of which the "
-        f"assembly {quad_ms - table['ee_quad_gn']['ms']:.3f} ms")
-    del Xq, gq
+    log(f"  reach quadratization X (B,H,{nx},{nx}), g, U, r "
+        f"(_reach_quad_batch_kernel: ee_quad_gn, U's expand and w_ctrl us):"
+        f" {quad_ms:.3f} ms, of which around the kernel "
+        f"{quad_ms - table['ee_quad_gn']['ms']:.3f} ms")
+    del X, gq
 
     F, L = cc.lin_fd_fast(plan, SUBSTEPS, xk, uk)
     X, q, U, r = reach_quad(xk, uk)

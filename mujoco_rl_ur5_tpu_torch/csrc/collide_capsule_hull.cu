@@ -10,7 +10,8 @@
 // 24 operations per vertex for the mean and 55 per face for the five
 // probes, 140 bytes written per instance).
 //
-// Design: the staging, team and joins of collide_hull_team.cuh (a team of
+// Design: the staging, team, joins and probe loop (probe_faces) of
+// collide_hull_team.cuh, which sphere-hull runs with one probe (a team of
 // T = 4 lanes per (pair, scenario), the hull table in shared memory per
 // block, grid-stride blocks):
 //  * the lanes move the row's vertices to world once, into the instance's
@@ -20,14 +21,12 @@
 //    are moved and added too, times 0: a signed zero, which keeps the sum's
 //    bits where it is -0;
 //  * every lane forms the five probe centres with the plain operations;
-//    lane l moves its real faces (f = l, l + T, ... below the row's face
-//    count) to world once and scores each against all five centres, each
-//    probe keeping its first maximum (face 0 taken as it is, as the plain
-//    argmax does). Padded faces score about -1e10 and never win after face
-//    0, so they are skipped;
-//  * shuffles within the team take each probe's maximum, ties to the lower
-//    face index; the lane that owns slot k (k mod T) moves the winning face
-//    to world again by the same operations and writes the slot.
+//    then probe_faces<5>: lane l moves its real faces (f = l, l + T, ...
+//    below the row's face count) to world once and scores each against all
+//    five centres, each probe keeping its first maximum; shuffles within the
+//    team take each probe's maximum, ties to the lower face index; the lane
+//    that owns slot k (k mod T) moves the winning face to world again by the
+//    same operations and writes the slot.
 #include "collide_hull_team.cuh"
 
 constexpr int PROBES = 5;
@@ -50,7 +49,7 @@ capsule_hull_kernel(const float* __restrict__ pos,
   extern __shared__ float4 smem4[];
   const Table tab = stage_table(
       reinterpret_cast<float*>(smem4 + IPB * inst_rows(0, V)), verts, fnorm,
-      fdist, nvert, nface, M, V, F, true);
+      fdist, nvert, nface, M, V, F, true, true);
   const int lane = threadIdx.x % T, team = threadIdx.x / T;
   float4* wv = smem4 + team * inst_rows(0, V);     // the hull's world vertices
   const unsigned m = team_mask();
@@ -68,7 +67,7 @@ capsule_hull_kernel(const float* __restrict__ pos,
     load_pose(pos, quat, b, G, a, P1);
     load_pose(pos, quat, b, G, c, P2);
     const int m2 = meshid[c];
-    const int nv = tab.nv[m2], nf = tab.nf[m2];
+    const int nv = tab.nv[m2];
     for (int v = lane; v < V; v += T) {
       float o[3];
       to_world(P2, tab.verts + ((size_t)m2 * V + v) * 3, o);
@@ -101,56 +100,8 @@ capsule_hull_kernel(const float* __restrict__ pos,
     for (int k = 0; k < PROBES; ++k)
 #pragma unroll
       for (int r = 0; r < 3; ++r) ctr[k][r] = P1.p[r] + u[r] * ts[k];
-    // each lane's faces: every probe's first maximum
-    const float* fn = tab.fnorm + (size_t)m2 * F * 3;
-    const float* fd = tab.fdist + (size_t)m2 * F;
-    const int nfx = nf > 0 ? nf : 1;   // no real face: face 0, as the argmax
-    float best[PROBES];
-    int bf[PROBES];
-#pragma unroll
-    for (int k = 0; k < PROBES; ++k) {
-      best[k] = -COLLIDE_HUGE;
-      bf[k] = 0x7fffffff;
-    }
-    for (int f = lane; f < nfx; f += T) {
-      float nw[3];
-      const float d = face_world(P2, fn + f * 3, fd[f], nw);
-#pragma unroll
-      for (int k = 0; k < PROBES; ++k) {
-        const float score = dot3(nw, ctr[k]) - d;
-        if (f == 0 || score > best[k]) {   // a lane's faces come in order
-          best[k] = score;
-          bf[k] = f;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = T / 2; off > 0; off >>= 1) {
-#pragma unroll
-      for (int k = 0; k < PROBES; ++k) {
-        const float ob = __shfl_xor_sync(m, best[k], off, T);
-        const int of = __shfl_xor_sync(m, bf[k], off, T);
-        if (ob > best[k] || (ob == best[k] && of < bf[k])) {
-          best[k] = ob;
-          bf[k] = of;
-        }
-      }
-    }
-    // _sphere_hull_point's contact along the winning face
-#pragma unroll
-    for (int k = 0; k < PROBES; ++k) {
-      if (live && k % T == lane) {
-        float nw[3];
-        face_world(P2, fn + bf[k] * 3, fd[bf[k]], nw);
-        const float dist = best[k] - rad;
-        const float h = rad + 0.5f * dist;
-        const float p[3] = {ctr[k][0] - nw[0] * h, ctr[k][1] - nw[1] * h,
-                            ctr[k][2] - nw[2] * h};
-        const float nrm[3] = {-nw[0], -nw[1], -nw[2]};
-        store(out_pos, out_nrm, out_dist, (size_t)inst * PROBES + k, p, nrm,
-              dist);
-      }
-    }
+    probe_faces<PROBES>(tab, m2, F, P2, ctr, rad, lane, live, inst,
+                        out_pos, out_nrm, out_dist);
   }
 }
 

@@ -1,9 +1,10 @@
 // Shared device code of the six narrowphase kernels (collide_*.cu): small
-// vector helpers, the output store, and a row of the hull tables with the
-// sphere probes of the one-thread sphere-hull kernel. The team kernels keep
-// their own bodies: box-box in collide_box_box.cu; hull-hull, box-hull and
-// plane-hull in collide_hull_team.cuh, whose staging, team and joins
-// capsule-hull (collide_capsule_hull.cu) shares.
+// vector helpers, poses and the output store, and box-box's parameter list
+// and launch. The kernels keep their own bodies: box-box in
+// collide_box_box.cu; hull-hull, box-hull and plane-hull in
+// collide_hull_team.cuh, whose staging, team and joins sphere-hull and
+// capsule-hull (collide_sphere_hull.cu, collide_capsule_hull.cu) share with
+// its probe loop.
 //
 // Each body computes one (pair, scenario), with the arithmetic,
 // guards and tie rules of mujoco_rl_ur5_tpu_torch/physics/collision.py (the
@@ -18,7 +19,7 @@
 //   pos (B, G, 3), quat (B, G, 4)  per-scenario collision poses of the geoms
 //   size (G, 3)                    collision sizes
 //   meshid (G,) int32              hull row of a geom (-1: no hull)
-//   verts (M, V, 3), vmask (M, V), fnorm (M, F, 3), fdist (M, F)
+//   verts (M, V, 3), fnorm (M, F, 3), fdist (M, F)
 //   g1, g2 (B, n) int32            the pair's geoms in each scenario
 //   out_pos, out_nrm (B, n, K, 3), out_dist (B, n, K)
 #pragma once
@@ -90,98 +91,8 @@ __device__ __forceinline__ void store(float* __restrict__ out_pos,
 }
 
 // ---------------------------------------------------------------------------
-// a row of the hull tables (verts, vmask, fnorm, fdist), read by the
-// one-thread sphere-hull kernel
-// ---------------------------------------------------------------------------
-
-struct Hull {
-  const float* verts;  // (V, 3)
-  const float* vmask;  // (V,)
-  const float* fnorm;  // (F, 3)
-  const float* fdist;  // (F,)
-  int V, F;
-};
-
-__device__ __forceinline__ Hull table_hull(const float* __restrict__ verts,
-                                           const float* __restrict__ vmask,
-                                           const float* __restrict__ fnorm,
-                                           const float* __restrict__ fdist,
-                                           int mesh, int V, int F) {
-  Hull h;
-  h.verts = verts + (size_t)mesh * V * 3;
-  h.vmask = vmask + (size_t)mesh * V;
-  h.fnorm = fnorm + (size_t)mesh * F * 3;
-  h.fdist = fdist + (size_t)mesh * F;
-  h.V = V;
-  h.F = F;
-  return h;
-}
-
-// local vertex v of a hull; false for a padded (masked) vertex
-__device__ __forceinline__ bool hull_vert(const Hull& h, int v, float* o) {
-  o[0] = h.verts[v * 3 + 0];
-  o[1] = h.verts[v * 3 + 1];
-  o[2] = h.verts[v * 3 + 2];
-  return h.vmask[v] > 0.5f;
-}
-
-// world face f of a hull: normal n and offset d (n . x <= d)
-__device__ __forceinline__ float hull_face(const Hull& h, const Pose& P,
-                                           int f, float* n) {
-  const float nl[3] = {h.fnorm[f * 3 + 0], h.fnorm[f * 3 + 1],
-                       h.fnorm[f * 3 + 2]};
-  rot(P, nl, n);
-  return h.fdist[f] + (n[0] * P.p[0] + n[1] * P.p[1] + n[2] * P.p[2]);
-}
-
-// ---------------------------------------------------------------------------
-// sphere probes against a hull (collision._sphere_hull_point): for each of P
-// sphere centers, the hull face of largest signed distance (the first of
-// equals), then one contact along it: 1 slot for a sphere.
-// The faces are moved to world once and scored against every center
-// ---------------------------------------------------------------------------
-
-template <int P>
-__device__ __forceinline__ void sphere_probes(const Hull& h, const Pose& Ph,
-                                              const float (*c)[3], float r,
-                                              float* __restrict__ out_pos,
-                                              float* __restrict__ out_nrm,
-                                              float* __restrict__ out_dist,
-                                              size_t slot0) {
-  float best[P], nb[P][3];
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    best[k] = -COLLIDE_HUGE;
-    nb[k][0] = nb[k][1] = nb[k][2] = 0.f;
-  }
-  for (int f = 0; f < h.F; ++f) {
-    float n[3];
-    const float d = hull_face(h, Ph, f, n);
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const float score = dot3(n, c[k]) - d;
-      if (f == 0 || score > best[k]) {
-        best[k] = score;
-        nb[k][0] = n[0];
-        nb[k][1] = n[1];
-        nb[k][2] = n[2];
-      }
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const float dist = best[k] - r;
-    const float h2 = r + 0.5f * dist;
-    const float p[3] = {c[k][0] - nb[k][0] * h2, c[k][1] - nb[k][1] * h2,
-                        c[k][2] - nb[k][2] * h2};
-    const float nrm[3] = {-nb[k][0], -nb[k][1], -nb[k][2]};
-    store(out_pos, out_nrm, out_dist, slot0 + k, p, nrm, dist);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the kernels' shared parameter list, launch shape and C entry point: pairs
-// of one scenario on neighbouring threads (or teams)
+// box-box's parameter list, launch shape and C entry point: pairs of one
+// scenario on neighbouring teams (the hull kernels have their own entries)
 // ---------------------------------------------------------------------------
 
 #define COLLIDE_THREADS 128
@@ -189,8 +100,8 @@ __device__ __forceinline__ void sphere_probes(const Hull& h, const Pose& Ph,
 #define COLLIDE_PARAMS                                                       \
   const float *__restrict__ pos, const float *__restrict__ quat,              \
       const float *__restrict__ size, const int *__restrict__ meshid,         \
-      const float *__restrict__ verts, const float *__restrict__ vmask,       \
-      const float *__restrict__ fnorm, const float *__restrict__ fdist,       \
+      const float *__restrict__ verts, const float *__restrict__ fnorm,       \
+      const float *__restrict__ fdist,                                        \
       const int *__restrict__ g1, const int *__restrict__ g2,                 \
       float *__restrict__ out_pos, float *__restrict__ out_nrm,               \
       float *__restrict__ out_dist, int B, int n, int G, int V, int F
@@ -206,15 +117,12 @@ __device__ __forceinline__ void sphere_probes(const Hull& h, const Pose& Ph,
 #define COLLIDE_ENTRY_IPB(name, ipb)                                         \
   extern "C" int collide_##name(                                             \
       const float* pos, const float* quat, const float* size,                \
-      const int* meshid, const float* verts, const float* vmask,             \
-      const float* fnorm, const float* fdist, const int* g1, const int* g2,  \
+      const int* meshid, const float* verts, const float* fnorm,             \
+      const float* fdist, const int* g1, const int* g2,                      \
       float* out_pos, float* out_nrm, float* out_dist, int B, int n, int G,  \
       int V, int F, void* stream) {                                          \
     COLLIDE_LAUNCH(name##_kernel, (B * n + (ipb) - 1) / (ipb), stream,       \
-                   pos, quat, size, meshid, verts, vmask, fnorm, fdist, g1,  \
-                   g2, out_pos, out_nrm, out_dist, B, n, G, V, F);           \
+                   pos, quat, size, meshid, verts, fnorm, fdist, g1, g2,     \
+                   out_pos, out_nrm, out_dist, B, n, G, V, F);               \
     return (int)cudaGetLastError();                                          \
   }
-
-// one thread per (pair, scenario)
-#define COLLIDE_ENTRY(name) COLLIDE_ENTRY_IPB(name, COLLIDE_THREADS)

@@ -4,15 +4,17 @@
 // it, 8 slots. Side 2 is a row of the hull table; side 1 is chosen at
 // compile time (Side1): a row too (hull-hull), a box made from its size
 // (box-hull), or a plane (plane-hull), whose z axis is the winning face
-// with no face pass. collide_capsule_hull.cu shares the staging, the team
-// and the joins below.
+// with no face pass. The probe kernels, collide_sphere_hull.cu and
+// collide_capsule_hull.cu, share the staging, the team and the joins below
+// and run one probe loop (probe_faces) for their 1 and 5 probes.
 //
 // Design (a team of 4 lanes of one warp per instance; 2 and 8 ran no
 // faster on the H100 for hull-hull):
 //  * the block stages the model's hull table (local vertices, face normals
 //    and offsets, each mesh's real vertex and face counts; a plane's kernel
-//    reads no faces and stages none) in shared memory once, then walks its
-//    instances grid-stride;
+//    reads no faces and stages none, sphere-hull reads no vertices and
+//    stages none) in shared memory once, then walks its instances
+//    grid-stride;
 //  * each vertex and each face moves to world once per instance: the team's
 //    lanes move both sides' vertices into the instance's shared rows, and
 //    each lane moves its own faces (f = lane, lane + T, ...) into registers,
@@ -58,8 +60,8 @@ enum Side1 { HULL1, BOX1, PLANE1 };
 // shared memory, in floats: per instance both sides' world vertices as
 // float4 rows (side 1's rows1: a table row V, a box 8, a plane none; side
 // 2's V; and 1 more: consecutive instances start on other banks; .w of the
-// deepest pass's side holds its distances), then the table (its faces
-// where the kernel reads them)
+// deepest pass's side holds its distances), then the table (its vertices
+// and its faces where the kernel reads them)
 __host__ __device__ constexpr int side1_rows(Side1 s1, int V) {
   return s1 == HULL1 ? V : (s1 == BOX1 ? 8 : 0);
 }
@@ -67,13 +69,13 @@ __host__ __device__ constexpr size_t inst_rows(int rows1, int V) {
   return (size_t)rows1 + V + 1;
 }
 __host__ __device__ constexpr size_t table_floats(int M, int V, int F,
-                                                  bool faces) {
-  return (size_t)M * V * 3 + (faces ? (size_t)M * F * 4 : 0)
+                                                  bool verts, bool faces) {
+  return (verts ? (size_t)M * V * 3 : 0) + (faces ? (size_t)M * F * 4 : 0)
          + 2 * (size_t)M;
 }
 __host__ __device__ constexpr size_t smem_bytes(int M, int V, int F,
                                                int rows1, bool faces) {
-  return (IPB * inst_rows(rows1, V) * 4 + table_floats(M, V, F, faces))
+  return (IPB * inst_rows(rows1, V) * 4 + table_floats(M, V, F, true, faces))
          * sizeof(float);
 }
 // the shared memory of a hull_team<s1> block
@@ -83,8 +85,8 @@ __host__ __device__ constexpr size_t hull_team_smem(Side1 s1, int M, int V,
 }
 
 // the hull table in shared memory: verts (M, V, 3), fnorm (M, F, 3), fdist
-// (M, F) (no faces where the kernel reads none), each row's real counts
-// nv, nf (M,)
+// (M, F) (no vertices or no faces where the kernel reads none), each row's
+// real counts nv, nf (M,)
 struct Table {
   const float* verts;
   const float* fnorm;
@@ -99,13 +101,15 @@ __device__ __forceinline__ Table stage_table(
     float* tab, const float* __restrict__ verts,
     const float* __restrict__ fnorm, const float* __restrict__ fdist,
     const int* __restrict__ nvert, const int* __restrict__ nface, int M,
-    int V, int F, bool faces) {
+    int V, int F, bool vertices, bool faces) {
   float* s_verts = tab;
-  float* s_fnorm = s_verts + (size_t)M * V * 3;
+  float* s_fnorm = s_verts + (vertices ? (size_t)M * V * 3 : 0);
   float* s_fdist = s_fnorm + (faces ? (size_t)M * F * 3 : 0);
   int* s_nv = reinterpret_cast<int*>(s_fdist + (faces ? (size_t)M * F : 0));
   int* s_nf = s_nv + M;
-  for (int i = threadIdx.x; i < M * V * 3; i += THREADS) s_verts[i] = verts[i];
+  if (vertices)
+    for (int i = threadIdx.x; i < M * V * 3; i += THREADS)
+      s_verts[i] = verts[i];
   if (faces) {
     for (int i = threadIdx.x; i < M * F * 3; i += THREADS)
       s_fnorm[i] = fnorm[i];
@@ -233,7 +237,7 @@ __device__ __forceinline__ void hull_team(
   const int rows1 = side1_rows(S1, V);
   const Table tab = stage_table(
       reinterpret_cast<float*>(smem4 + IPB * inst_rows(rows1, V)), verts,
-      fnorm, fdist, nvert, nface, M, V, F, S1 != PLANE1);
+      fnorm, fdist, nvert, nface, M, V, F, true, S1 != PLANE1);
 
   const int lane = threadIdx.x % T, team = threadIdx.x / T;
   float4* w1 = smem4 + team * inst_rows(rows1, V);  // side 1's world vertices
@@ -350,6 +354,75 @@ __device__ __forceinline__ void hull_team(
       }
     }
     __syncwarp();        // the rows are written again by the next instance
+  }
+}
+
+// The probe loop of the probe kernels (sphere-hull: 1 probe, capsule-hull:
+// 5): P spheres of radius rad at centres ctr against the table row m2 at
+// pose P2, collision._sphere_hull_point for each. Lane l moves its real
+// faces (f = l, l + T, ... below the row's face count) to world once and
+// scores each against every centre, each probe keeping its first maximum
+// of n . c - d (face 0 taken as it is, as the plain argmax does; no real
+// face: face 0 alone). Padded faces score about -1e10 and never win after
+// face 0, so they are skipped. Shuffles within the team take each probe's
+// maximum, ties to the lower face index; the lane that owns slot k (k mod
+// T) moves the winning face to world again by the same operations and
+// writes the contact along it to slot inst * P + k where the instance is
+// live. Every lane of the team calls it (the shuffles need all four)
+template <int P>
+__device__ __forceinline__ void probe_faces(
+    const Table& tab, int m2, int F, const Pose& P2, const float (*ctr)[3],
+    float rad, int lane, bool live, long inst, float* __restrict__ out_pos,
+    float* __restrict__ out_nrm, float* __restrict__ out_dist) {
+  const unsigned m = team_mask();
+  const float* fn = tab.fnorm + (size_t)m2 * F * 3;
+  const float* fd = tab.fdist + (size_t)m2 * F;
+  const int nf = tab.nf[m2];
+  const int nfx = nf > 0 ? nf : 1;     // no real face: face 0, as the argmax
+  float best[P];
+  int bf[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    best[k] = -COLLIDE_HUGE;
+    bf[k] = 0x7fffffff;
+  }
+  for (int f = lane; f < nfx; f += T) {
+    float nw[3];
+    const float d = face_world(P2, fn + f * 3, fd[f], nw);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float score = dot3(nw, ctr[k]) - d;
+      if (f == 0 || score > best[k]) {     // a lane's faces come in order
+        best[k] = score;
+        bf[k] = f;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = T / 2; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float ob = __shfl_xor_sync(m, best[k], off, T);
+      const int of = __shfl_xor_sync(m, bf[k], off, T);
+      if (ob > best[k] || (ob == best[k] && of < bf[k])) {
+        best[k] = ob;
+        bf[k] = of;
+      }
+    }
+  }
+  // _sphere_hull_point's contact along the winning face
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (live && k % T == lane) {
+      float nw[3];
+      face_world(P2, fn + bf[k] * 3, fd[bf[k]], nw);
+      const float dist = best[k] - rad;
+      const float h = rad + 0.5f * dist;
+      const float p[3] = {ctr[k][0] - nw[0] * h, ctr[k][1] - nw[1] * h,
+                          ctr[k][2] - nw[2] * h};
+      const float nrm[3] = {-nw[0], -nw[1], -nw[2]};
+      store(out_pos, out_nrm, out_dist, (size_t)inst * P + k, p, nrm, dist);
+    }
   }
 }
 

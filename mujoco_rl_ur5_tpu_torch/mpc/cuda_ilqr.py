@@ -8,9 +8,10 @@ its kernels replaced by the port's:
     launch: one-substep forward differences composed by matmul)
   * stage quadratization  -> ``quad``: in reach mode
     physics/cuda_chain.ee_quad_gn (1 launch: FK, geometric Jacobians and
-    Gauss-Newton blocks for all B x H knots); in track mode plain torch
-    (the tracking cost is already quadratic: diagonal constants and linear
-    terms). The terminal quadratization and the start cost are plain torch
+    the full stage blocks X and g for all B x H knots); in track mode
+    plain torch (the tracking cost is already quadratic: diagonal
+    constants and linear terms). The terminal quadratization and the
+    start cost are plain torch
   * Riccati backward pass -> mpc/cuda_lqr.backward             (1 launch)
   * 5-alpha line search   -> physics/cuda_chain.rollout_closed (1 launch,
     candidate costs fused)

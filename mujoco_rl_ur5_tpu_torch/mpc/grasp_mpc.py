@@ -258,18 +258,15 @@ class GraspMPC:
 
     def _reach_quad_batch_kernel(self, xs, us, targets):
         """Batched stage quadratization through the ``ee_quad_gn`` kernel:
-        one launch for all B x H expansions; the diagonal velocity and
-        control blocks are assembled here. Equal to _reach_quad over
-        (B, H)."""
+        one launch writes the full stage blocks X and g for all B x H
+        expansions; the control blocks are constants. Equal to _reach_quad
+        over (B, H)."""
         w = self.w
-        nq, nu, nx = self.nq, self.nu, self.nx
+        nu = self.nu
         B, H = us.shape[0], us.shape[1]
-        Xq, gq = ee_quad_gn(self.plan, self.ee_slot, EE_OFFSET, w.w_ee_run,
-                            w.w_orient, w.w_posture, self.home, xs, targets)
-        X = torch.zeros(B, H, nx, nx, dtype=xs.dtype, device=xs.device)
-        X[:, :, :nq, :nq] = Xq
-        torch.diagonal(X, dim1=-2, dim2=-1)[..., nq:] = w.w_vel
-        g = torch.cat([gq, w.w_vel * xs[..., nq:]], -1)
+        X, g = ee_quad_gn(self.plan, self.ee_slot, EE_OFFSET, w.w_ee_run,
+                          w.w_orient, w.w_posture, w.w_vel, self.home, xs,
+                          targets)
         U = (w.w_ctrl * torch.eye(nu, dtype=xs.dtype, device=xs.device)
              ).expand(B, H, nu, nu)
         return X, g, U, w.w_ctrl * us
@@ -338,7 +335,7 @@ class GraspMPC:
                 + [cuda_lqr.SOURCE,
                    cuda_chain.ee_quad_source(
                        self.plan, self.ee_slot, EE_OFFSET, w.w_ee_run,
-                       w.w_orient, w.w_posture, self.home)])
+                       w.w_orient, w.w_posture, w.w_vel, self.home)])
 
     def build_kernels(self) -> float:
         """Build every kernel of the path at once (one nvcc per source, in

@@ -29,8 +29,9 @@ Hopper:
     constants.
   * **Reach quadratization.** ``make_ee_quad`` builds the Gauss-Newton
     blocks of the end-effector reach cost (FK, geometric Jacobians, outer
-    products) over the same entries; ``ee_quad_header`` emits it
-    (``chain_ee_quad.cuh``) for the ``ee_quad_gn`` kernel.
+    products) and its gradient over the same entries; ``ee_quad_header``
+    emits it (``chain_ee_quad.cuh``) for the ``ee_quad_gn`` kernel, which
+    writes the solver's full stage blocks X and g.
 
 Every kernel wrapper has its plain version beside it: a CPU tensor runs
 the plain version; a CUDA tensor launches the kernel (and counts the
@@ -569,25 +570,27 @@ def cost_header(cost, nv: int, nu: int, R: int, RT: int) -> Generated:
 
 
 def make_ee_quad(plan: ChainPlan, slot: int, off: tuple, w_ee: float,
-                 w_orient: float, w_posture: float, home: tuple):
-    """quad(q, tgt) -> (Xu, g) over entry lists: the Gauss-Newton blocks of
-    the reach stage cost at body slot ``slot``.
+                 w_orient: float, w_posture: float, w_vel: float,
+                 home: tuple):
+    """quad(q, qd, tgt) -> (Xu, g) over entry lists: the Gauss-Newton blocks
+    of the reach stage cost at body slot ``slot``.
 
         Xq = w_ee J'J + w_orient Ja'Ja + w_posture I
-        gq = w_ee J'e + w_orient Ja'a + w_posture (q - home)
+        g  = [w_ee J'e + w_orient Ja'a + w_posture (q - home), w_vel qd]
 
     with e = p - off - tgt, a = xaxis - (0, 0, -1) and the geometric
     Jacobians J[:, d] = z_d x (p - anchor_d), Ja[:, d] = z_d x xaxis for the
     dofs that move the body. ``Xu`` holds the nv (nv + 1) / 2 distinct
     entries of the symmetric Xq, row by row from the diagonal; dofs that do
-    not move the body give constant entries (floats)."""
+    not move the body give constant entries (floats). The stage Hessian is
+    Xq beside w_vel on the velocity diagonal (``ee_quad_gn``)."""
     nv = plan.nv
     fk = make_fk(plan)
     offc = [float(o) for o in off]
     homec = [float(h) for h in home]
     anc = [bool(a) for a in plan.anc_dof[slot]]
 
-    def quad(q: Sequence, tgt: Sequence):
+    def quad(q: Sequence, qd: Sequence, tgt: Sequence):
         xpos, xrot, anchor, axis_w = fk(q)
         praw = xpos[slot]
         e = [ssub(ssub(praw[i], offc[i]), tgt[i]) for i in range(3)]
@@ -607,7 +610,7 @@ def make_ee_quad(plan: ChainPlan, slot: int, off: tuple, w_ee: float,
               for i in range(nv) for j in range(i, nv)]
         g = [sadd(smul(w_ee, sdot(Jp[i], e)), smul(w_orient, sdot(Ja[i], a)),
                   smul(w_posture, ssub(q[i], homec[i]))) for i in range(nv)]
-        return Xu, g
+        return Xu, g + [smul(w_vel, v) for v in qd]
 
     return quad
 
@@ -620,20 +623,26 @@ def _ee_quad(plan: ChainPlan, *cfg):
 @functools.lru_cache(maxsize=None)
 def ee_quad_header(plan: ChainPlan, *cfg) -> Generated:
     """``chain_ee_quad.cuh``: the reach quadratization as a ``__device__``
-    function over register arrays, with the weights, offset and home of
-    ``cfg`` (the arguments of make_ee_quad after the plan) folded."""
+    function over register arrays (Xu the nv (nv + 1) / 2 distinct entries
+    of Xq, g the 2 nv entries of the gradient), with the weights, offset and
+    home of ``cfg`` (the arguments of make_ee_quad after the plan) folded,
+    and the velocity weight as ``CHAIN_W_VEL``."""
     nv = plan.nv
+    w_vel = cfg[5]        # _quad_cfg's order: slot, off, the four weights
     em = _Emitter()
-    Xu, g = _ee_quad(plan, *cfg)(em.inputs("q", nv), em.inputs("tg", 3))
+    Xu, g = _ee_quad(plan, *cfg)(em.inputs("q", nv), em.inputs("qd", nv),
+                                 em.inputs("tg", 3))
     stores = ([f"  Xu[{i}] = {_lit(x)};" for i, x in enumerate(Xu)]
               + [f"  g[{i}] = {_lit(x)};" for i, x in enumerate(g)])
     text = "\n".join([
         "// Generated by mujoco_rl_ur5_tpu_torch/physics/cuda_chain.py",
         "#pragma once",
         f"#define CHAIN_NV {nv}",
+        f"#define CHAIN_W_VEL {_lit(w_vel)}",
         "__device__ __forceinline__ void chain_ee_quad(",
-        "    const float* __restrict__ q, const float* __restrict__ tg,",
-        "    float* __restrict__ Xu, float* __restrict__ g) {",
+        "    const float* __restrict__ q, const float* __restrict__ qd,",
+        "    const float* __restrict__ tg, float* __restrict__ Xu,",
+        "    float* __restrict__ g) {",
         *em.lines, *stores, "}", ""])
     return Generated(text, {"quad": em.ops})
 
@@ -904,7 +913,8 @@ def _closed_src(plan: ChainPlan, cost, R: int, RT: int) -> _build.KernelSource:
 @functools.lru_cache(maxsize=None)
 def _quad_src(plan: ChainPlan, *cfg) -> _build.KernelSource:
     return _build.KernelSource(
-        "chain_ee_quad_gn", "ee_quad_gn", (_P, _P, _P, _P, _I, _I, _P),
+        "chain_ee_quad_gn", "ee_quad_gn",
+        (_P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P),
         {"chain_ee_quad.cuh": ee_quad_header(plan, *cfg).text})
 
 
@@ -914,17 +924,18 @@ def kernel_sources(plan: ChainPlan, cost=None, R: int = 0, RT: int = 0):
     return [_open_src(plan), _lin_src(plan), _closed_src(plan, cost, R, RT)]
 
 
-def _quad_cfg(slot, off, w_ee, w_orient, w_posture, home) -> tuple:
+def _quad_cfg(slot, off, w_ee, w_orient, w_posture, w_vel, home) -> tuple:
     return (int(slot), tuple(float(o) for o in off), float(w_ee),
-            float(w_orient), float(w_posture), tuple(float(h) for h in home))
+            float(w_orient), float(w_posture), float(w_vel),
+            tuple(float(h) for h in home))
 
 
 def ee_quad_source(plan: ChainPlan, slot: int, off, w_ee: float,
-                   w_orient: float, w_posture: float,
+                   w_orient: float, w_posture: float, w_vel: float,
                    home) -> _build.KernelSource:
     """The ``ee_quad_gn`` kernel's source for a plan and a reach cost."""
     return _quad_src(plan, *_quad_cfg(slot, off, w_ee, w_orient, w_posture,
-                                      home))
+                                      w_vel, home))
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -947,16 +958,6 @@ def _route(*ts: torch.Tensor) -> bool:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _bfast(t: torch.Tensor) -> torch.Tensor:
-    """(B, ...) -> (..., B) contiguous: the kernels' batch-fastest layout."""
-    return t.permute(*range(1, t.dim()), 0).contiguous()
-
-
-def _bslow(t: torch.Tensor) -> torch.Tensor:
-    """(..., B) -> (B, ...) contiguous: back to the public layout."""
-    return t.permute(t.dim() - 1, *range(t.dim() - 1)).contiguous()
 
 
 def _stack(entries, like: torch.Tensor) -> torch.Tensor:
@@ -1227,49 +1228,71 @@ rollout_closed.launches = 0
 
 
 def ee_quad_gn_plain(plan: ChainPlan, slot: int, off, w_ee: float,
-                     w_orient: float, w_posture: float, home,
+                     w_orient: float, w_posture: float, w_vel: float, home,
                      xs: torch.Tensor, targets: torch.Tensor):
     nv = plan.nv
     quad = _ee_quad(plan, *_quad_cfg(slot, off, w_ee, w_orient, w_posture,
-                                     home))
+                                     w_vel, home))
     Xu, g = quad([xs[..., i] for i in range(nv)],
+                 [xs[..., nv + i] for i in range(nv)],
                  [targets[:, None, i] for i in range(3)])
-    like = xs[..., 0]
-    full = [[None] * nv for _ in range(nv)]
+    X = xs.new_zeros(xs.shape[:-1] + (2 * nv, 2 * nv))
     it = iter(Xu)
     for i in range(nv):
         for j in range(i, nv):
-            full[i][j] = full[j][i] = next(it)
-    Xq = torch.stack([_stack(row, like) for row in full], -2)
-    return Xq, _stack(g, like)
+            X[..., i, j] = X[..., j, i] = next(it)
+    vel = torch.arange(nv, 2 * nv, device=xs.device)
+    X[..., vel, vel] = w_vel
+    return X, _stack(g, xs[..., 0])
+
+
+def check_quad_inputs(plan: ChainPlan, xs, targets) -> tuple:
+    """Raise unless ee_quad_gn's inputs are what its kernel reads in place:
+    float32, xs (B, H, nx) with contiguous rows of nx and any batch stride
+    that keeps each row 16-byte aligned (the solver's ``xs[:, :-1]``),
+    targets (B, 3) contiguous, B, H >= 1. Returns (B, H)."""
+    nx = 2 * plan.nv
+    B, H = (xs.shape[0], xs.shape[1]) if xs.dim() == 3 else (0, 0)
+    if (xs.dim() != 3 or xs.shape[2] != nx
+            or tuple(targets.shape) != (B, 3)):
+        raise ValueError(f"ee_quad_gn: xs {tuple(xs.shape)} and targets "
+                         f"{tuple(targets.shape)} are not (B, H, {nx}) and "
+                         "(B, 3)")
+    if B < 1 or H < 1:
+        raise ValueError(f"ee_quad_gn: B={B}, H={H}")
+    if xs.dtype != torch.float32 or targets.dtype != torch.float32:
+        raise ValueError(f"ee_quad_gn: float32 inputs, got {xs.dtype} and "
+                         f"{targets.dtype}")
+    if (xs.stride(2) != 1 or xs.stride(1) != nx or xs.stride(0) % 4
+            or xs.data_ptr() % 16):
+        raise ValueError("ee_quad_gn: xs must have contiguous 16-byte "
+                         f"aligned rows of {nx}, got strides {xs.stride()}")
+    if not targets.is_contiguous():
+        raise ValueError("ee_quad_gn: targets must be contiguous")
+    return B, H
 
 
 def ee_quad_gn(plan: ChainPlan, slot: int, off, w_ee: float, w_orient: float,
-               w_posture: float, home, xs: torch.Tensor,
+               w_posture: float, w_vel: float, home, xs: torch.Tensor,
                targets: torch.Tensor):
-    """Gauss-Newton stage quadratization of the end-effector reach cost (see
-    make_ee_quad) for all B x H knots in one launch: xs (B, H, nx),
-    targets (B, 3) -> Xq (B, H, nq, nq), gq (B, H, nq). The velocity and
-    control blocks are diagonal constants the caller adds."""
+    """The reach cost's Gauss-Newton stage blocks (see make_ee_quad) for all
+    B x H knots in one launch, in the solver's layout: xs (B, H, nx) and
+    targets (B, 3), read where they are, -> X (B, H, nx, nx), Xq in its
+    top-left block, w_vel on the velocity diagonal and exact zeros
+    elsewhere, and g (B, H, nx)."""
     if not _route(xs, targets):
         return ee_quad_gn_plain(plan, slot, off, w_ee, w_orient, w_posture,
-                                home, xs, targets)
-    nv = plan.nv
-    B, H = xs.shape[0], xs.shape[1]
-    if xs.shape != (B, H, 2 * nv) or targets.shape != (B, 3):
-        raise ValueError(f"ee_quad_gn: xs {tuple(xs.shape)} and targets "
-                         f"{tuple(targets.shape)} are not (B, H, {2 * nv}) "
-                         "and (B, 3)")
-    N = B * H
-    qt = xs.reshape(N, 2 * nv)[:, :nv].t().contiguous()      # (nv, N)
-    tt = _bfast(targets)                                     # (3, B)
-    Xq = torch.empty(nv, nv, N, device=xs.device)
-    gq = torch.empty(nv, N, device=xs.device)
-    src = ee_quad_source(plan, slot, off, w_ee, w_orient, w_posture, home)
-    _build.call(src, qt.data_ptr(), tt.data_ptr(), Xq.data_ptr(),
-                gq.data_ptr(), N, H, _stream(xs))
+                                w_vel, home, xs, targets)
+    B, H = check_quad_inputs(plan, xs, targets)
+    nx = 2 * plan.nv
+    X = torch.empty(B, H, nx, nx, device=xs.device)
+    g = torch.empty(B, H, nx, device=xs.device)
+    src = ee_quad_source(plan, slot, off, w_ee, w_orient, w_posture, w_vel,
+                         home)
+    _build.call(src, xs.data_ptr(), xs.stride(0), targets.data_ptr(),
+                X.data_ptr(), g.data_ptr(), B * H, H, _stream(xs))
     ee_quad_gn.launches += 1
-    return (_bslow(Xq).reshape(B, H, nv, nv), _bslow(gq).reshape(B, H, nv))
+    return X, g
 
 
 ee_quad_gn.launches = 0

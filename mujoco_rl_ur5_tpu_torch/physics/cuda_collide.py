@@ -23,11 +23,11 @@ kernel was handed per-pair copies of every table (the JAX package gathers
 (pair, scenario) a team of ``BOX_TEAM`` lanes (one corner each; the SAT
 axes split between them); hull-hull, box-hull and plane-hull share one team
 body (csrc/collide_hull_team.cuh; side 1 a box made from its size for
-box-hull, a plane for plane-hull) and capsule-hull takes its staging,
-team and joins for its five probes: a team of ``HULL_TEAM`` lanes per
-(pair, scenario), the table staged in shared memory, the loops over each
-row's real vertices and faces (``Hulls.nvert``/``nface``); sphere-hull
-runs one thread per (pair, scenario). Each returns pos
+box-hull, a plane for plane-hull), and sphere-hull and capsule-hull take
+its staging, team and joins with one probe loop for their one and five
+probes: a team of ``HULL_TEAM`` lanes per (pair, scenario), the table
+staged in shared memory, the loops over each row's real vertices and faces
+(``Hulls.nvert``/``nface``). Each returns pos
 (B, n, K, 3), normal (B, n, K, 3) and dist (B, n, K), K = 9 for box-box,
 8 for hull-hull, box-hull and plane-hull, 1 for sphere-hull and 5 for
 capsule-hull, with physics/collision.py's arithmetic, operation
@@ -135,14 +135,15 @@ def capsule_hull_plain(pos, quat, size, hulls, g1, g2):
 # -- kernels --------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# pos, quat, size, meshid, verts, vmask, fnorm, fdist, g1, g2,
-# out_pos, out_nrm, out_dist, B, n, G, V, F, stream
-_ARGS = (_P,) * 13 + (_I,) * 5 + (_P,)
+# box-box's arguments: pos, quat, size, meshid, verts, fnorm, fdist, g1,
+# g2, out_pos, out_nrm, out_dist, B, n, G, V, F, stream
+_ARGS = (_P,) * 12 + (_I,) * 5 + (_P,)
 # each team hull kernel's output slots, and whether it reads size; its
 # arguments: pos, quat, [size], meshid, verts, fnorm, fdist, nvert, nface,
 # g1, g2, out_pos, out_nrm, out_dist, B, n, G, M, V, F, stream
 TEAM = {"hull_hull": (8, False), "box_hull": (8, True),
-        "plane_hull": (8, False), "capsule_hull": (5, True)}
+        "plane_hull": (8, False), "sphere_hull": (1, True),
+        "capsule_hull": (5, True)}
 BOX_TEAM = 8    # lanes per (pair, scenario) of csrc/collide_box_box.cu
 HULL_TEAM = 4   # lanes per (pair, scenario) of csrc/collide_hull_team.cuh
 _HEADERS = ("collide_common.cuh", "collide_hull_team.cuh")
@@ -188,40 +189,29 @@ def _outputs(B: int, n: int, K: int, dev):
                                                              device=dev))
 
 
-def _launch(wrapper, kernel: str, K: int, pos, quat, size, hulls, g1, g2):
-    """Check the operands, lay them out as the kernel reads them and
-    launch, counted in ``wrapper.launches``; returns (pos, normal,
-    dist)."""
+def box_box_launch(pos, quat, size, g1, g2):
+    """Check box-box's operands, lay them out as the kernel reads them and
+    launch, counted in ``box_box_batched.launches``; returns (pos, normal,
+    dist). The kernel reads the boxes' sizes and no hull table."""
     B, G = pos.shape[0], pos.shape[1]
     n = g1.shape[-1]
     dev = pos.device
-    pos, quat = _poses(kernel, pos, quat)
+    pos, quat = _poses("box_box", pos, quat)
     size = size.contiguous()
     if size.shape != (G, 3):
-        raise ValueError(f"{kernel}: size (G, 3) expected, got "
+        raise ValueError("box_box: size (G, 3) expected, got "
                          f"{tuple(size.shape)}")
     ids = _ids(g1, g2, B, n, dev)
-    if hulls is None:
-        z = torch.zeros(1, device=dev)
-        tables = (torch.zeros(G, dtype=torch.int32, device=dev), z, z, z, z)
-        V = F = 0
-    else:
-        _route(hulls.verts, hulls.vmask, hulls.fnorm, hulls.fdist)
-        V, F = hulls.verts.shape[1], hulls.fnorm.shape[1]
-        if V < 8 or hulls.meshid.shape != (G,):
-            raise ValueError(f"{kernel}: hull tables need >= 8 vertices and "
-                             "a mesh row per geom")
-        tables = (hulls.meshid.to(device=dev, dtype=torch.int32).contiguous(),
-                  *(t.contiguous() for t in (hulls.verts, hulls.vmask,
-                                             hulls.fnorm, hulls.fdist)))
-    out_pos, out_nrm, out_dist = _outputs(B, n, K, dev)
+    z = torch.zeros(1, device=dev)
+    tables = (torch.zeros(G, dtype=torch.int32, device=dev), z, z, z)
+    out_pos, out_nrm, out_dist = _outputs(B, n, 9, dev)
     if B * n:
-        _build.call(source(kernel), pos.data_ptr(), quat.data_ptr(),
+        _build.call(source("box_box"), pos.data_ptr(), quat.data_ptr(),
                     size.data_ptr(), *(t.data_ptr() for t in tables),
                     ids[0].data_ptr(), ids[1].data_ptr(), out_pos.data_ptr(),
-                    out_nrm.data_ptr(), out_dist.data_ptr(), B, n, G, V, F,
+                    out_nrm.data_ptr(), out_dist.data_ptr(), B, n, G, 0, 0,
                     _stream(pos))
-        wrapper.launches += 1
+        box_box_batched.launches += 1
     return out_pos, out_nrm, out_dist
 
 
@@ -230,19 +220,22 @@ def team_smem(kernel: str, M: int, V: int, F: int) -> int:
     tables of M rows of V vertices and F faces: its 128 / HULL_TEAM
     instances' world vertices in rows of 16 bytes (side 1's, side 2's V and
     1 more: hull-hull V + V + 1, box-hull 8 + V + 1; plane-hull and
-    capsule-hull, with no vertices on side 1, V + 1), then the staged table
-    (the vertices, each row's counts and, except for plane-hull, which
-    reads no faces, the face normals and offsets; csrc
-    collide_hull_team.cuh smem_bytes)."""
-    rows = {"hull_hull": V, "box_hull": 8}.get(kernel, 0) + V + 1
+    capsule-hull, with no vertices on side 1, V + 1; sphere-hull, which
+    reads no vertices, none), then the staged table (each row's counts, the
+    vertices except for sphere-hull and, except for plane-hull, which reads
+    no faces, the face normals and offsets; csrc collide_hull_team.cuh
+    smem_bytes and table_floats)."""
     faces = 0 if kernel == "plane_hull" else M * F * 4
+    if kernel == "sphere_hull":
+        return (faces + 2 * M) * 4
+    rows = {"hull_hull": V, "box_hull": 8}.get(kernel, 0) + V + 1
     return (128 // HULL_TEAM * rows * 4 + M * V * 3 + faces + 2 * M) * 4
 
 
 def team_launch(kernel: str, pos, quat, size, hulls: Hulls, g1, g2):
     """One launch of a team hull kernel (``TEAM``; ``size`` is read by
-    box-hull and capsule-hull), counted in its wrapper's ``launches``. The
-    kernel loops over each row's real vertices and faces,
+    box-hull, sphere-hull and capsule-hull), counted in its wrapper's
+    ``launches``. The kernel loops over each row's real vertices and faces,
     ``hulls.nvert``/``hulls.nface`` (raises without them), and stages the
     table in one block's shared memory: raises where it does not fit."""
     B, G = pos.shape[0], pos.shape[1]
@@ -289,18 +282,16 @@ def team_launch(kernel: str, pos, quat, size, hulls: Hulls, g1, g2):
     return out_pos, out_nrm, out_dist
 
 
-def _wrapper(kernel: str, K: int, plain, doc: str):
+def _wrapper(kernel: str, plain, doc: str):
     """``<kernel>_batched``: the plain version on CPU tensors; on CUDA
     tensors the kernel's launch, counted in ``.launches``."""
-    tables = kernel != "box_box"        # box-box reads sizes, not hulls
 
     def batched(pos, quat, size, hulls, g1, g2):
         if not _route(pos, quat, size):
             return plain(pos, quat, size, hulls, g1, g2)
         if kernel in TEAM:
             return team_launch(kernel, pos, quat, size, hulls, g1, g2)
-        return _launch(batched, kernel, K, pos, quat, size,
-                       hulls if tables else None, g1, g2)
+        return box_box_launch(pos, quat, size, g1, g2)
     batched.__name__ = batched.__qualname__ = f"{kernel}_batched"
     batched.__doc__ = doc
     batched.launches, batched.plain = 0, plain
@@ -308,22 +299,22 @@ def _wrapper(kernel: str, K: int, plain, doc: str):
 
 
 box_box_batched = _wrapper(
-    "box_box", 9, box_box_plain, "Box-box corners both ways and the 15-axis "
+    "box_box", box_box_plain, "Box-box corners both ways and the 15-axis "
     "edge SAT: 9 slots (the boxes come from their sizes).")
 hull_hull_batched = _wrapper(
-    "hull_hull", 8, hull_hull_plain, "Least-overlap face over both hulls, "
+    "hull_hull", hull_hull_plain, "Least-overlap face over both hulls, "
     "8 deepest vertices: 8 slots.")
 box_hull_batched = _wrapper(
-    "box_hull", 8, box_hull_plain, "A box as an 8-vertex / 6-face hull "
+    "box_hull", box_hull_plain, "A box as an 8-vertex / 6-face hull "
     "against a hull: 8 slots.")
 plane_hull_batched = _wrapper(
-    "plane_hull", 8, plane_hull_plain, "The 8 deepest hull vertices under "
+    "plane_hull", plane_hull_plain, "The 8 deepest hull vertices under "
     "a plane: 8 slots.")
 sphere_hull_batched = _wrapper(
-    "sphere_hull", 1, sphere_hull_plain, "A sphere's center against the "
+    "sphere_hull", sphere_hull_plain, "A sphere's center against the "
     "hull's faces: 1 slot.")
 capsule_hull_batched = _wrapper(
-    "capsule_hull", 5, capsule_hull_plain, "Five sphere probes along a "
+    "capsule_hull", capsule_hull_plain, "Five sphere probes along a "
     "capsule's axis against a hull: 5 slots.")
 
 # the wrapper of each (type1, type2) pair group; the other primitive groups

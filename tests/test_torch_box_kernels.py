@@ -63,7 +63,7 @@ def _run_box_box(fn, pos, quat, size, g1, g2):
     z = torch.zeros(1)
     outs = [torch.empty(B, n, 9, 3), torch.empty(B, n, 9, 3),
             torch.empty(B, n, 9)]
-    keep = [pos, quat, size, torch.zeros(G, dtype=torch.int32), z, z, z, z,
+    keep = [pos, quat, size, torch.zeros(G, dtype=torch.int32), z, z, z,
             g1.to(torch.int32), g2.to(torch.int32), *outs]
     assert fn(*(x.data_ptr() for x in keep), B, n, G, 0, 0, None) == 0
     return outs

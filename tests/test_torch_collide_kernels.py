@@ -124,9 +124,11 @@ def test_kernel_sources_are_in_the_package():
     for s in srcs:
         assert "collide_common.cuh" in s.headers
         k = s.entry[len("collide_"):]
-        # the team kernels launch otherwise: the team hull kernels have
-        # their own entries (real counts, the table in shared memory, a
-        # grid-stride launch), box-box a team of lanes per instance
+        # every kernel runs teams: the team hull kernels (sphere-hull
+        # among them) have their own entries (real counts, the table in
+        # shared memory, a grid-stride launch), box-box the common entry
+        # with a team of lanes per instance
         entry = {k: f'extern "C" int {s.entry}(' for k in cc.TEAM}
         entry["box_box"] = "COLLIDE_ENTRY_IPB(box_box, IPB)"
-        assert entry.get(k, f"COLLIDE_ENTRY({k})") in s.text
+        assert set(entry) == set(cc.KERNELS)
+        assert entry[k] in s.text

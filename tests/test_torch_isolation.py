@@ -17,8 +17,9 @@ falls back to the CPU when CUDA is asked for.
   pad's hull beside a cylinder's prism), they give their plain versions'
   outputs to the bit (both round every product and sum in the same order;
   the host build, like nvcc's, does not contract them). Box-hull's
-  launch, like hull-hull's, raises without the hull rows' real counts and
-  where the table does not fit one block's shared memory. The ray cast
+  launch, like hull-hull's and the probe kernels', raises without the hull
+  rows' real counts and where the table does not fit one block's shared
+  memory. The ray cast
   (csrc/raycast.cu, a block per 16 x 16 tile of a frame, its geoms culled
   per tile) does the same on three 24 x 20 frames of the object pile with
   a geom hidden: s*, geom id and normal equal to render/raycast.py's plain
@@ -143,7 +144,7 @@ def test_cpu_tensors_route_to_the_plain_version(mpc, kernel):
     reg = t([1e-6, 1e-3, 1.0])
     w = mpc.w
     quad_args = (plan, mpc.ee_slot, EE_OFFSET, w.w_ee_run, w.w_orient,
-                 w.w_posture, mpc.home, xs[:, :-1],
+                 w.w_posture, w.w_vel, mpc.home, xs[:, :-1],
                  t([[0.0, -0.6, 1.0]] * B))
     calls = {
         "rollout_open": (cc.rollout_open, cc.rollout_open_plain,
@@ -173,7 +174,7 @@ def test_tensor_on_another_device_raises(mpc):
     w = mpc.w
     with pytest.raises(RuntimeError, match="no kernel for device"):
         cc.ee_quad_gn(mpc.plan, mpc.ee_slot, EE_OFFSET, w.w_ee_run,
-                      w.w_orient, w.w_posture, mpc.home,
+                      w.w_orient, w.w_posture, w.w_vel, mpc.home,
                       torch.zeros(2, mpc.H, 16, device="meta"),
                       torch.zeros(2, 3, device="meta"))
 
@@ -269,7 +270,7 @@ def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
                                t(fnorm), t(fdist))
     g1 = torch.from_numpy(rng.integers(0, G // 2, (B, n)))
     g2 = torch.from_numpy(rng.integers(G // 2, G, (B, n)))
-    K = {"box_box": 9, "sphere_hull": 1, "capsule_hull": 5}.get(kernel, 8)
+    K = cuda_collide.TEAM[kernel][0] if kernel in cuda_collide.TEAM else 9
     outs = [torch.empty(B, n, K, 3), torch.empty(B, n, K, 3),
             torch.empty(B, n, K)]
     ids = [g1.to(torch.int32), g2.to(torch.int32)]
@@ -281,9 +282,9 @@ def test_collide_kernel_source_runs_on_the_host(tmp_path, kernel):
                 *outs]
         assert fn(*(x.data_ptr() for x in keep), B, n, G, 2, V, F,
                   None) == 0
-    else:
-        keep = [pos, quat, size, hulls.meshid.to(torch.int32), *hulls[1:5],
-                *ids, *outs]
+    else:                                     # box-box: sizes, no counts
+        keep = [pos, quat, size, hulls.meshid.to(torch.int32), hulls.verts,
+                hulls.fnorm, hulls.fdist, *ids, *outs]
         assert fn(*(x.data_ptr() for x in keep), B, n, G, V, F, None) == 0
     want = getattr(cuda_collide, f"{kernel}_batched").plain(
         pos, quat, size, hulls, g1, g2)
@@ -328,12 +329,14 @@ def test_box_hull_raises_where_the_table_does_not_fit():
         cuda_collide.team_launch("box_hull", pos, quat, size, hulls, g1, g2)
 
 
-@pytest.mark.parametrize("kernel", ["plane_hull", "capsule_hull"])
+@pytest.mark.parametrize("kernel", ["plane_hull", "sphere_hull",
+                                    "capsule_hull"])
 def test_probe_launch_needs_the_counts_and_a_table_that_fits(kernel):
-    """Plane-hull and capsule-hull take the team launch's checks: each
-    row's real counts, and a table staged in one block's shared memory
-    (plane-hull stages no faces: V + 1 rows per instance and the vertices;
-    capsule-hull also the faces)."""
+    """Plane-hull, sphere-hull and capsule-hull take the team launch's
+    checks: each row's real counts, and a table staged in one block's
+    shared memory (plane-hull stages no faces: V + 1 rows per instance and
+    the vertices; capsule-hull also the faces; sphere-hull the faces and
+    the counts alone)."""
     pos, quat, size, hulls, g1, g2 = _box_hull_operands()
     for missing in ("nvert", "nface"):
         with pytest.raises(ValueError, match="counts"):
@@ -341,8 +344,9 @@ def test_probe_launch_needs_the_counts_and_a_table_that_fits(kernel):
                                      hulls._replace(**{missing: None}), g1,
                                      g2)
     faces = 0 if kernel == "plane_hull" else 11 * 34 * 16
+    rows = 0 if kernel == "sphere_hull" else 32 * 33 * 16 + 11 * 32 * 12
     assert (cuda_collide.team_smem(kernel, 11, 32, 34)
-            == 32 * 33 * 16 + 11 * 32 * 12 + faces + 11 * 8)
+            == rows + faces + 11 * 8)
     pos, quat, size, hulls, g1, g2 = _box_hull_operands(M=2000)
     with pytest.raises(ValueError, match="shared memory"):
         cuda_collide.team_launch(kernel, pos, quat, size, hulls, g1, g2)

@@ -1,21 +1,24 @@
-"""The plane-hull and capsule-hull kernels (csrc/collide_plane_hull.cu on
-the team body of csrc/collide_hull_team.cuh, and csrc/collide_capsule_hull.cu
-on its staging, team and joins) on the host.
+"""The plane-hull, sphere-hull and capsule-hull kernels
+(csrc/collide_plane_hull.cu on the team body of csrc/collide_hull_team.cuh,
+csrc/collide_sphere_hull.cu and csrc/collide_capsule_hull.cu on its
+staging, team, joins and probe loop) on the host.
 
 Plane-hull runs the team body with a plane on side 1: no face pass, the
 plane's z axis the winning face, the 8 deepest of the hull's real vertices
-by ranks. Capsule-hull gives each (pair, scenario) a team of 4 lanes: the
-hull's mean vertex summed in index order, each lane's real faces scored
-against the five probe centres, each probe's first maximum joined by
-shuffles. Each source compiles once with g++ through the threaded host shim
-of tests/test_torch_host_shim.py (warp shuffles and barriers emulated) and,
-called through its C entry point on CPU tensors, must equal
-``cuda_collide.plane_hull_plain`` / ``capsule_hull_plain`` to the bit in
-every output slot, inactive ones included, as on the card (built with
--fmad=false). The cases:
+by ranks. Sphere-hull and capsule-hull give each (pair, scenario) a team of
+4 lanes that run one probe loop (``probe_faces``): each lane's real faces
+scored against the probe centres (the sphere's centre; the capsule's five,
+about the hull's mean vertex summed in index order), each probe's first
+maximum joined by shuffles. Each source compiles once with g++ through the
+threaded host shim of tests/test_torch_host_shim.py (warp shuffles and
+barriers emulated) and, called through its C entry point on CPU tensors,
+must equal ``cuda_collide.plane_hull_plain`` / ``sphere_hull_plain`` /
+``capsule_hull_plain`` to the bit in every output slot, inactive ones
+included, as on the card (built with -fmad=false). The cases:
 
-* seeded random pairs, 145 plane-hull and 185 capsule-hull instances (no
-  multiple of a block's 32 teams), the hull rows mixed within every warp:
+* seeded random pairs, 145 plane-hull, 155 sphere-hull and 185
+  capsule-hull instances (no multiple of a block's 32 teams), the hull
+  rows mixed within every warp:
   a cylinder's prism (32 vertices, 18 faces), the finger pad's hull (24,
   34), a tetrahedron (4 vertices: plane-hull's slots 4-7 carry BIG at the
   padded vertices' indices) and two cubes, padded to 32 x 34;
@@ -23,7 +26,10 @@ every output slot, inactive ones included, as on the card (built with
   and the lower indices (16-23) must win;
 * a capsule standing along a prism's side, where two side faces (7 and 8,
   mirror images across the x axis) meet: every probe scores both equally,
-  and face 7, held by a later lane than face 8, must win;
+  and face 7, held by a later lane than face 8, must win; a sphere at the
+  same centre, likewise;
+* a sphere whose centre lies inside the hull (every face scores below 0:
+  the nearest face wins, and the contact is deeper than the radius);
 * capsules whose probe at the hull centre (``tmid``) clamps at either end;
 * each row's counts one short, which the kernels take as given.
 """
@@ -44,7 +50,7 @@ ROWS = (0, 1, 2, 3, 4)                      # prism, pad, tetra, two cubes
 def kernels(tmp_path_factory):
     d = tmp_path_factory.mktemp("probe_kernels")
     return {k: host_build(cuda_collide.source(k), d / k)
-            for k in ("plane_hull", "capsule_hull")}
+            for k in ("plane_hull", "sphere_hull", "capsule_hull")}
 
 
 def _quat_axis(axis, angle):
@@ -54,8 +60,8 @@ def _quat_axis(axis, angle):
 
 
 def _problem():
-    """Five scenarios of 20 geoms: planes 0-1, capsules 2-6 and the hulls
-    7-19 (table rows prism, prism, prism, prism, pad, pad, pad,
+    """Five scenarios of 20 geoms: planes 0-1, capsules 2-6 (spheres of
+    their radii in sphere-hull's pairs) and the hulls 7-19 (table rows prism, prism, prism, prism, pad, pad, pad,
     tetrahedron, tetrahedron and each cube twice). Scenario 0 stands hull 7
     (a prism) upright on plane 0, sunk 2^-7 into it; puts hull 8 (a prism)
     at the origin, capsule 2 upright along its side where faces 7 and 8
@@ -164,11 +170,38 @@ def test_capsule_hull_kernel_source_equals_plain_on_the_host(kernels):
         assert not torch.equal(want[0][0, j, 0], want[0][0, j, 1])
 
 
-@pytest.mark.parametrize("kernel", ["plane_hull", "capsule_hull"])
+def test_sphere_hull_kernel_source_equals_plain_on_the_host(kernels):
+    pos, quat, size, hulls, rng = _problem()
+    # sphere 5 inside prism 8 (at the origin, upright) in scenario 0
+    pos[0, 5] = torch.tensor([0.005, 0.0078125, 0.02])
+    g1, g2 = _ids(rng, 5, 31, 2, 7, [(2, 8), (5, 8)])
+    outs = _run(kernels["sphere_hull"], "sphere_hull", pos, quat, size,
+                hulls, g1, g2)
+    want = cuda_collide.sphere_hull_plain(pos, quat, size, hulls, g1, g2)
+    assert want[2].shape == (5, 31, 1)
+    for got, ref in zip(outs, want):
+        assert torch.equal(got, ref)
+    _mixed(hulls, g2)
+    # on the prism's side where faces 7 and 8 meet: both score alike, and
+    # face 7 (lane 3) wins over face 8 (lane 0)
+    n7 = hulls.fnorm[0, 7]
+    assert torch.equal(want[1][0, 0, 0], -n7)
+    # the centre inside: every face scores below 0, the nearest wins and
+    # the contact lies deeper than the radius
+    c = pos[0, 5].double()
+    scores = (hulls.fnorm[0, :18].double() @ c - hulls.fdist[0, :18].double())
+    r = float(size[5, 0])
+    assert float(scores.max()) < 0.0
+    assert abs(float(want[2][0, 1, 0]) + r - float(scores.max())) < 1e-6
+    assert float(want[2][0, 1, 0]) < -r
+
+
+@pytest.mark.parametrize("kernel", ["plane_hull", "sphere_hull",
+                                    "capsule_hull"])
 def test_probe_kernel_takes_the_counts_it_is_given(kernels, kernel):
-    """Each row's vertex count (plane-hull) or face count (capsule-hull) one
-    short gives the plain version with that vertex or face padded, and
-    changes the answer (the card's planted faults)."""
+    """Each row's vertex count (plane-hull) or face count (sphere-hull and
+    capsule-hull) one short gives the plain version with that vertex or
+    face padded, and changes the answer (the card's planted faults)."""
     pos, quat, size, hulls, rng = _problem()
     lo, hi = (0, 2) if kernel == "plane_hull" else (2, 7)
     g1, g2 = _ids(rng, 5, 29, lo, hi, [])

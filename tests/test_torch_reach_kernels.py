@@ -6,8 +6,12 @@ plan and seeded numpy inputs, on the CPU.
   geometric Jacobians also against ``torch.func.jacfwd`` of the port's own
   ``chain_body_pos`` / ``chain_body_xaxis`` (atol 2e-5).
 * ``ee_quad_gn`` on CPU tensors (its plain version: the generated code run on
-  tensors) against the JAX Pallas kernel in interpret mode, and
-  ``_reach_quad_batch_kernel`` against JAX ``vmap(vmap(_reach_quad))``, at
+  tensors), which writes the full stage blocks X (B, H, 16, 16) and
+  g (B, H, 16): its Gauss-Newton block X[..., :8, :8] and g[..., :8]
+  against the JAX Pallas kernel in interpret mode, the velocity diagonal
+  and the zeros exact; ``_reach_quad_batch_kernel`` (X, g, U, r) against
+  JAX's own ``_reach_quad_batch_kernel`` (the Pallas kernel in interpret
+  mode and its assembly) and against JAX ``vmap(vmap(_reach_quad))``, at
   atol 2e-4 and rtol 1e-4, the JAX package's own gate for its kernel. B=3,
   H=4, substeps=2 and the targets of that gate.
 * ``rollout_closed`` with the fused reach costs (FK inside, no per-knot
@@ -153,10 +157,12 @@ def test_ee_quad_gn_matches_jax_kernel(setup):
     w = tmpc.w
     xk = xs[:, :H]
     before = cc.ee_quad_gn.launches
-    Xq, gq = cc.ee_quad_gn(tmpc.plan, tmpc.ee_slot, EE_OFFSET, w.w_ee_run,
-                           w.w_orient, w.w_posture, tmpc.home,
-                           torch.from_numpy(xk), torch.from_numpy(TARGETS))
+    X, g = cc.ee_quad_gn(tmpc.plan, tmpc.ee_slot, EE_OFFSET, w.w_ee_run,
+                         w.w_orient, w.w_posture, w.w_vel, tmpc.home,
+                         torch.from_numpy(xk), torch.from_numpy(TARGETS))
     assert cc.ee_quad_gn.launches == before
+    assert X.shape == (B, H, 16, 16) and g.shape == (B, H, 16)
+    Xq, gq = X[..., :8, :8], g[..., :8]
     jX, jg = jpc.ee_quad_gn(
         jmpc.plan, tmpc.ee_slot, tuple(EE_OFFSET), float(w.w_ee_run),
         float(w.w_orient), float(w.w_posture),
@@ -173,6 +179,12 @@ def test_ee_quad_gn_matches_jax_kernel(setup):
     want = torch.zeros_like(fingers)
     want[..., 0, 6] = want[..., 1, 7] = w.w_posture
     assert torch.equal(fingers, want)
+    # the velocity block: w_vel on the diagonal, exact zeros off the blocks
+    vel = torch.zeros(8, 8)
+    vel.diagonal()[:] = w.w_vel
+    assert torch.equal(X[..., 8:, 8:], vel.expand(B, H, 8, 8))
+    assert not X[..., :8, 8:].any() and not X[..., 8:, :8].any()
+    assert torch.equal(g[..., 8:], w.w_vel * torch.from_numpy(xk[..., 8:]))
 
 
 def test_reach_quad_batch_kernel_matches_jax_quad(setup):
@@ -194,6 +206,28 @@ def test_reach_quad_batch_kernel_matches_jax_quad(setup):
                                atol=1e-6)
     np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]),
                                atol=1e-6)
+
+
+def test_reach_quad_batch_kernel_matches_jax_batch_kernel(setup):
+    """The port's one launch against the JAX package's kernel and the
+    assembly around it (zeros, the block, the velocity diagonal, the
+    gradient's velocity half, U and r)."""
+    jmpc, tmpc, _, _, us, xs = setup
+    xk = xs[:, :H]
+    got = tmpc._reach_quad_batch_kernel(
+        torch.from_numpy(xk), torch.from_numpy(us),
+        torch.from_numpy(TARGETS))
+    want = jmpc._reach_quad_batch_kernel(jnp.asarray(xk), jnp.asarray(us),
+                                         jnp.asarray(TARGETS))
+    for g, w, shape in zip(got, want, [(16, 16), (16,), (7, 7), (7,)]):
+        assert g.shape == (B, H) + shape == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-4,
+                                   rtol=1e-4)
+    # exact where JAX's assembly writes constants
+    jX = np.asarray(want[0])
+    assert np.array_equal(got[0][..., 8:, :].numpy(), jX[..., 8:, :])
+    assert np.array_equal(got[0][..., :8, 8:].numpy(), jX[..., :8, 8:])
+    assert np.array_equal(got[2].numpy(), np.asarray(want[2]))
 
 
 def test_rollout_closed_with_reach_costs_matches_jax_kernel(setup):
@@ -234,11 +268,15 @@ def test_kernel_sources_list_six_units(setup):
     assert len({s.key for s in srcs}) == 6
     text = srcs[-1].headers["chain_ee_quad.cuh"]
     assert "chain_ee_quad(" in text and "#define CHAIN_NV 8" in text
-    # the weights key the source: another posture weight, another library
+    assert "#define CHAIN_W_VEL 0.05" in text
+    # the weights key the source: another posture or velocity weight,
+    # another library
     w = tmpc.w
-    other = cc.ee_quad_source(tmpc.plan, tmpc.ee_slot, EE_OFFSET, w.w_ee_run,
-                              w.w_orient, 0.5, tmpc.home)
-    assert other.key != srcs[-1].key
+    for w_posture, w_vel in ((0.5, w.w_vel), (w.w_posture, 0.5)):
+        other = cc.ee_quad_source(tmpc.plan, tmpc.ee_slot, EE_OFFSET,
+                                  w.w_ee_run, w.w_orient, w_posture, w_vel,
+                                  tmpc.home)
+        assert other.key != srcs[-1].key
     reach_cost = srcs[3].headers["chain_cost.cuh"]
     assert "#define CHAIN_NSR 0" in reach_cost
     assert "#define CHAIN_NTR 3" in reach_cost and "cosf(" in reach_cost

@@ -2,20 +2,25 @@
 
 * ``lqr_backward`` (a team of 16 lanes per scenario), ``rollout_closed``
   (the alphas of 32 scenarios in one block), ``lin_fd`` (24 threads per
-  (scenario, knot) and the composition in shared memory) and the ray cast
-  (a block per 16 x 16 tile, its geoms culled) compile with g++ through
-  the threaded host shim of tests/test_torch_host_shim.py, which runs
-  every CUDA thread of a block as a host thread. Called through their C
-  entry points on CPU tensors at ragged sizes (11 scenarios for blocks of
-  8, 37 for blocks of 32, 15 instances for blocks of 4, tiles of 16 x 8
-  pixels at the image's edge), the chain kernels are held as
+  (scenario, knot) and the composition in shared memory), ``ee_quad_gn``
+  (the full stage blocks X and g, each warp's span written through shared
+  memory) and the ray cast (a block per 16 x 16 tile, its geoms culled)
+  compile with g++ through the threaded host shim of
+  tests/test_torch_host_shim.py, which runs every CUDA thread of a block
+  as a host thread. Called through their C entry points on CPU tensors at
+  ragged sizes (11 scenarios for blocks of 8, 37 for blocks of 32, 15
+  instances for blocks of 4, 111 and 185 instances for blocks of 128 with
+  a part-filled and an empty warp, tiles of 16 x 8 pixels at the image's
+  edge), the chain kernels are held as
   chip_smoke.py's phase 3 holds them on the card: against the plain
   version run in float64, each output's error at most twice the plain
   float32 version's plus 1e-6 of its scale (the host's sinf/cosf and
   1/sqrt stand in for the card's). ``rollout_closed`` runs with the
   solver's 5 alphas and with the 8 its launch takes at most (a block of
   256 threads); ``lin_fd`` with the composition over 8 substeps, over 1
-  (none), and as the full-knot differences over 2 substeps. The ray cast
+  (none), and as the full-knot differences over 2 substeps; ``ee_quad_gn``
+  from the solver's strided view of its states, its zeros and velocity
+  diagonal exact. The ray cast
   equals the plain cast to the bit (both round every operation alike and
   take correctly rounded roots: the plain version in float64, the host's
   sqrtf exactly) and its survivor lists equal the plain cull's.
@@ -30,7 +35,7 @@ from test_torch_host_shim import host_build
 
 from mujoco_rl_ur5_tpu_torch import ASSET
 from mujoco_rl_ur5_tpu_torch.mpc import cuda_lqr
-from mujoco_rl_ur5_tpu_torch.mpc.grasp_mpc import GraspMPC
+from mujoco_rl_ur5_tpu_torch.mpc.grasp_mpc import EE_OFFSET, GraspMPC
 from mujoco_rl_ur5_tpu_torch.physics import cuda_chain as cc
 
 HOME = np.array([0.0, -1.57, 1.57, -1.57, -1.57, 0.0, 0.0, 0.0])
@@ -172,6 +177,47 @@ def test_lin_fd_kernel_source_runs_on_the_host(mpc, lin_kernel, mode,
           plain(mpc.plan, substeps, xs.double(), us.double()))
 
 
+@pytest.fixture(scope="module")
+def quad_kernel(mpc, tmp_path_factory):
+    w = mpc.w
+    src = cc.ee_quad_source(mpc.plan, mpc.ee_slot, EE_OFFSET, w.w_ee_run,
+                            w.w_orient, w.w_posture, w.w_vel, mpc.home)
+    return host_build(src, tmp_path_factory.mktemp("quad"))
+
+
+def _quad_problem(B, H, seed=3):
+    """Knot states as the solver hands them (the first H of (B, H+1, 16),
+    batch-strided) and targets (B, 3)."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([HOME + 0.3 * rng.standard_normal((B, H + 1, 8)),
+                        0.2 * rng.standard_normal((B, H + 1, 8))], -1)
+    tg = np.array([0.0, -0.6, 1.0]) + 0.1 * rng.standard_normal((B, 3))
+    return _t(x)[:, :-1], _t(tg)
+
+
+@pytest.mark.parametrize("B, H", [(3, 37), (5, 37)])
+def test_ee_quad_gn_kernel_source_runs_on_the_host(mpc, quad_kernel, B, H):
+    w = mpc.w
+    xs, tg = _quad_problem(B, H)
+    assert cc.check_quad_inputs(mpc.plan, xs, tg) == (B, H)
+    X = torch.full((B, H, 16, 16), float("nan"))
+    g = torch.full((B, H, 16), float("nan"))
+    assert quad_kernel(xs.data_ptr(), xs.stride(0), tg.data_ptr(),
+                       X.data_ptr(), g.data_ptr(), B * H, H, None) == 0
+    cfg = (mpc.plan, mpc.ee_slot, EE_OFFSET, w.w_ee_run, w.w_orient,
+           w.w_posture, w.w_vel, mpc.home)
+    plain = cc.ee_quad_gn_plain(*cfg, xs, tg)
+    _hold((X, g), plain, cc.ee_quad_gn_plain(*cfg, xs.double(), tg.double()))
+    # written from constants, exactly: zeros off the blocks, w_vel on the
+    # velocity diagonal, and w_vel qd
+    vel = torch.zeros(8, 8)
+    vel.diagonal()[:] = w.w_vel
+    assert not X[..., :8, 8:].any() and not X[..., 8:, :8].any()
+    assert torch.equal(X[..., 8:, 8:], vel.expand(B, H, 8, 8))
+    assert torch.equal(g[..., 8:], plain[1][..., 8:])
+    assert torch.equal(X, X.transpose(-1, -2))
+
+
 def test_raycast_kernel_source_culls_on_the_host(tmp_path):
     from mujoco_rl_ur5_tpu_torch import OBJECTS
     from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
@@ -278,6 +324,18 @@ def test_lin_fd_input_check_raises(mpc, which, how):
     ins[which] = _bad(ins[which], how)
     with pytest.raises(ValueError, match="lin_fd"):
         cc._lin_launch(mpc.plan, ins["xs"], ins["us"], 1, 1)
+
+
+@pytest.mark.parametrize("which, how", [
+    (w, h) for w in ("xs", "targets") for h in _HOWS] + [("xs", "unaligned")])
+def test_ee_quad_gn_input_check_raises(mpc, which, how):
+    """The launch reads xs (B, H, 16) with any batch stride but rows of 16
+    contiguous floats, 16-byte aligned, and targets (B, 3) contiguous:
+    anything else raises before a build or launch."""
+    ins = dict(zip(("xs", "targets"), _quad_problem(3, 4)))
+    ins[which] = _bad(ins[which], how)
+    with pytest.raises(ValueError, match="ee_quad_gn"):
+        cc.check_quad_inputs(mpc.plan, ins["xs"], ins["targets"])
 
 
 def test_rollout_closed_input_check_counts_alphas(mpc):
