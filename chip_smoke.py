@@ -68,8 +68,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      pile, which must agree to the bit; the four narrowphase kernels
      (box_box, hull_hull, box_hull, plane_hull) held against their plain
      versions at the shapes of the settled pile's step, timed beside their
-     plain versions, bounds and the one-thread kernels' times they
-     replaced, with three planted faults which the comparison must flag
+     plain versions and bounds, with three planted faults which the
+     comparison must flag
      (box_box with the box sizes 0.1% small, box_hull with the rows of the
      most faces, every prism, one face short, plane_hull with every row one
      vertex short);
@@ -117,7 +117,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      cast to the bit; every branch of the cast must win pixels), and a
      geometric check of one frame: each hit pixel back-projects onto the
      surface of the geom that won it, and the floor reads the camera's
-     height.
+     height;
+ 11. the grasping environment and the MPC pick policy on the object pile:
+     the four chain kernels generated from the object fixture's arm plan
+     (GraspMPC.from_scene(OBJECTS), rollout_open, lin_fd_fast, backward
+     and rollout_closed with the track costs) against their plain versions
+     by phase 3's rule at B=64, H=16; GraspEnv.step through the kernels
+     against the same env on the CPU from one draw (B=4, budget_scale=0.005:
+     2 settle and 46 phase steps, iterations=30, ncon=128, 200 x 200): every
+     phase flag, reward and grasped equal, qpos within 1e-4, the winning
+     geom of the observation on >= 99.9% of the pixels and, where it
+     agrees, each hit within 1e-4 m along its surface normal, each collide
+     kernel launched once per contact step and the ray cast once; the same
+     step again equal to the bit; bench.py's bench_env at its quick scale
+     (0.1) at B=64 (reset, then one pick per scenario at its closest
+     pixel): resets/s, picks/s, the wall per contact step, the launches of
+     every kernel, with the card's name and power limit, and no scenario's
+     state non-finite but those witnessed to diverge in the JAX package
+     too (DIVERGES); step_mpc at B=64 with that planner (H=16, substeps=8,
+     iters=6): its wall time and launches, finite states and rewards in
+     {0, 1}.
 
 Each phase's wall time and the whole run's are printed as it ends.
 
@@ -217,6 +236,34 @@ def check(name: str, err: float, tol: float, what: str) -> None:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: {what} {err:.3e} > {tol:.3e}")
+
+
+def compare(name, outs, kern, plain_fn, args64):
+    """Hold every output (named in ``outs``) of a kernel against its plain
+    version run in float64 on the same inputs: the kernel's error is at most
+    twice the plain f32 version's (plus 1e-6 of the output's scale), each
+    output on its own. Returns (the largest direct difference over the
+    outputs, the plain version's ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = plain_fn()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ref = plain_fn(*args64)
+    errs = [(float((k.double() - r).abs().max() / r.abs().max()),
+             float((p.double() - r).abs().max() / r.abs().max()),
+             float((k - p).abs().max()))
+            for k, p, r in zip(kern, plain, ref)]
+    for out, (ek, ep, diff) in zip(outs, errs):
+        log(f"  {name} {out}: max |kernel - plain| {diff:.3e}; error vs "
+            f"float64 (max |d|/max|ref|): kernel {ek:.3e}, plain {ep:.3e}")
+    for out, (ek, ep, _) in zip(outs, errs):
+        check(f"{name} {out}", ek, 2 * ep + 1e-6, "kernel error vs float64")
+    return max(e[2] for e in errs), plain_ms
+
+
+def f64(*ts):
+    return [t.double() if torch.is_tensor(t) else t for t in ts]
 
 
 def backward_flops(nx: int, nu: int) -> int:
@@ -631,17 +678,6 @@ def collide_diff(got, want) -> tuple:
     return int(bad_slot.any(-1).sum()), live, max_err
 
 
-# the one-thread kernels that the team kernels replaced: ms per call (device
-# ms) on the box pile and on the object pile (PERF.md section 6; None: the
-# pile has no such group)
-ONE_THREAD = {"box_box": ((0.331, 0.316), (0.331, 0.317)),
-              "hull_hull": ((2.313, 2.292), (2.681, 2.665)),
-              "box_hull": ((0.646, 0.626), (0.467, 0.454)),
-              "plane_hull": ((0.113, 0.090), (0.075, 0.050)),
-              "sphere_hull": (None, (0.116, 0.021)),
-              "capsule_hull": (None, (0.156, 0.144))}
-
-
 def collide_rows(log, model, state, faults=()) -> dict:
     """Each collide kernel of the model's groups against its plain version
     at the shapes of ``state``'s step (``collide_diff``: at most 0.01% of
@@ -723,12 +759,6 @@ def collide_rows(log, model, state, faults=()) -> dict:
         if bad > 1e-4 * max(live, 1):
             raise AssertionError(f"{name}: {bad} entries outside the "
                                  f"tolerance")
-        if name in ONE_THREAD:
-            log(f"  {name}: the one-thread kernel before this design: "
-                + ", ".join(f"{r[0]:.3f} ms per call (device {r[1]:.3f}) "
-                            f"on the {pile} pile"
-                            for r, pile in zip(ONE_THREAD[name],
-                                               ("box", "object")) if r))
         if name not in faults:
             continue
         size = model.col_size
@@ -1020,12 +1050,24 @@ def contact_step(log, dump_settle=None) -> dict:
 
 
 # the arm turned so that the finger pads hang level over the bin
+# phase 11: the object arm's chain kernels (B, H), the env held against
+# the CPU (B), bench_env's batches (B=16, its reference-comparison point,
+# is left out: the call's time) and quick budget scale
+ENV_PLAN, ENV_CHECK, ENV_BATCHES, ENV_SCALE = (64, 16), 4, (64,), 0.1
+# the scenarios of the seeded pick at B (its generator's seed) whose
+# contact step diverges in the JAX package as on the card
+# (scripts/torch_env_witness.py found the step)
+DIVERGES = {64: (0,)}
 PADS_OVER_BIN = (-1.42, -1.08, 0.348, -1.739, 3.142, 0.671, 0.0, 0.0)
 IMAGE = 200                  # the reference's observation, bench.py:139
 RENDER_FRAMES = (256, 4096)  # bench_render's batch; every scenario
 # ray cast, kernel vs plain where the geom agrees: s* relative, normal
 # absolute; the share of pixels whose geom may differ
 CAST_TOL = {"gid": 1e-4, "s": 1e-6, "n": 1e-5}
+# the env's observation, card vs CPU after one step from one state: the
+# hit's offset along the surface normal (m), held to the state's own limit
+# (qpos within 1e-4): a surface moves with the state that it renders
+CAST_DISP = 1e-4
 # f32 operations of one ray against one visible geom of each branch (its
 # frame change 15 and the z-buffer compare 1 included): plane, sphere, box,
 # capsule, cylinder; a hull 19 + 27 per real face; the winner's hit point
@@ -1397,6 +1439,254 @@ def observation(log, model, state) -> dict:
     return row
 
 
+def launch_counters() -> dict:
+    """Every kernel wrapper of the port by kernel name (each counts its
+    launches in ``.launches``)."""
+    from mujoco_rl_ur5_tpu_torch.mpc import cuda_lqr
+    from mujoco_rl_ur5_tpu_torch.physics import cuda_chain as cc
+    from mujoco_rl_ur5_tpu_torch.physics import cuda_collide
+    from mujoco_rl_ur5_tpu_torch.render import cuda_raycast
+    w = {"rollout_open": cc.rollout_open, "lin_fd": cc.lin_fd,
+         "rollout_closed": cc.rollout_closed, "backward": cuda_lqr.backward,
+         "ee_quad_gn": cc.ee_quad_gn}
+    w.update({k: getattr(cuda_collide, f"{k}_batched") for k in OBJ_COLLIDE})
+    w["raycast"] = cuda_raycast.cast_rays
+    return w
+
+
+def counted(wrappers: dict, fn):
+    """Run ``fn`` (synchronised) with every launch count set to 0 just
+    before and read just after: (its result, wall seconds, {kernel:
+    launches})."""
+    for wr in wrappers.values():
+        wr.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            {k: wr.launches for k, wr in wrappers.items()})
+
+
+def closest_pixels(depth: torch.Tensor) -> torch.Tensor:
+    """bench.py's env actions: each scenario's closest pixel, rotation
+    b % 6."""
+    B = depth.shape[0]
+    pix = depth.reshape(B, -1).argmin(1).cpu()
+    return torch.stack([pix, torch.arange(B) % 6], 1)
+
+
+def grasp_env(log, smi: str) -> None:
+    """Phase 11 (see the module docstring)."""
+    from mujoco_rl_ur5_tpu_torch import OBJECTS
+    from mujoco_rl_ur5_tpu_torch.env import GraspEnv
+    from mujoco_rl_ur5_tpu_torch.env.grasp_env import FLAGS
+    from mujoco_rl_ur5_tpu_torch.mpc import cuda_lqr
+    from mujoco_rl_ur5_tpu_torch.mpc.cuda_ilqr import ALPHAS, REG
+    from mujoco_rl_ur5_tpu_torch.mpc.grasp_mpc import GraspMPC
+    from mujoco_rl_ur5_tpu_torch.physics import cuda_chain as cc
+    from mujoco_rl_ur5_tpu_torch.physics.kinematics import fk
+    from mujoco_rl_ur5_tpu_torch.render import cuda_raycast, raycast
+    from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
+
+    dev = "cuda"
+    wrappers = launch_counters()
+    chain = ("rollout_open", "lin_fd", "rollout_closed", "backward")
+    env_kw = dict(ncon=NCON, iterations=30, image_width=IMAGE,
+                  image_height=IMAGE)
+
+    # 11a. the chain kernels generated from the object fixture's arm plan,
+    # held by phase 3's rule
+    Bm, Hm = ENV_PLAN
+    mpc = GraspMPC.from_scene(OBJECTS, horizon=Hm, substeps=SUBSTEPS,
+                              iters=ITERS, device=dev)
+    log(f"object fixture's arm plan: {len(mpc.kernel_sources())} build "
+        f"units in {mpc.build_kernels():.1f} s; its chain kernels against "
+        f"their plain versions, B={Bm} H={Hm} substeps={SUBSTEPS}")
+    plan = mpc.plan
+    x0_np, q_np = tracking_problem(Bm, Hm, seed=6)
+    x0 = torch.from_numpy(x0_np).to(dev)
+    q_refs = torch.from_numpy(q_np).to(dev)
+    qd_refs = torch.zeros_like(q_refs)
+    refs, term = (q_refs[:, :-1], qd_refs[:, :-1]), (q_refs[:, -1],
+                                                     qd_refs[:, -1])
+    sref = torch.cat(refs, -1).contiguous()
+    tref = torch.cat(term, -1).contiguous()
+    u = mpc._hold_init(x0)
+    xs = cc.rollout_open(plan, SUBSTEPS, x0, u)
+    compare("rollout_open", ("xs",), (xs,), lambda *a: (
+        cc.rollout_open_plain(plan, SUBSTEPS, *(a or (x0, u))),), f64(x0, u))
+    xk = xs[:, :-1].contiguous()
+    compare("lin_fd_fast", ("F", "L"), cc.lin_fd_fast(plan, SUBSTEPS,
+                                                      xs[:, :-1], u),
+            lambda *a: cc.lin_fd_fast_plain(plan, SUBSTEPS, *(a or (xk, u))),
+            f64(xk, u))
+    F, L = cc.lin_fd_fast(plan, SUBSTEPS, xs[:, :-1], u)
+    bargs = tuple(t.contiguous() for t in (
+        F, L, *mpc._track_quad(xk, u, refs),
+        *mpc._track_term_quad(xs[:, -1], term))) + (
+        torch.full((Bm,), REG, device=dev),)
+    g = cuda_lqr.backward(*bargs)
+    compare("backward", ("K", "d", "S", "s"), g,
+            lambda *a: cuda_lqr.backward_plain(*(a or bargs)), f64(*bargs))
+    cargs = (x0, xs, u, g.K, g.d)
+    ckw = dict(cost=mpc._k_track, sref=sref, tref=tref)
+    out = cc.rollout_closed(plan, SUBSTEPS, *cargs, ALPHAS, **ckw)
+    compare("rollout_closed (track costs)", ("xs", "us", "costs"), out,
+            lambda *a: cc.rollout_closed_plain(
+                plan, SUBSTEPS, *(a or cargs), ALPHAS,
+                **(dict(cost=mpc._k_track, sref=sref.double(),
+                        tref=tref.double()) if a else ckw)), f64(*cargs))
+    want = torch.stack([
+        mpc._track_stage(out[0][:, a, :-1].double(), out[1][:, a].double(),
+                         (refs[0].double(), refs[1].double())).sum(-1)
+        + mpc._track_term(out[0][:, a, -1].double(),
+                          (term[0].double(), term[1].double()))
+        for a in range(len(ALPHAS))], 1)
+    check("rollout_closed (track costs) costs",
+          float(((out[2] - want) / want).abs().max()), 2e-5,
+          "max relative error vs the plain cost of its own xs, us")
+    del F, L, bargs, g, out, want
+
+    # 11b. the environment through the kernels against the same env on the
+    # CPU (every wrapper's plain version): one draw, B=4, 2 settle and 46
+    # phase steps from a seeded drop (one trajectory)
+    host = compile_file(OBJECTS)
+    small = dict(env_kw, budget_scale=0.005)
+    env_g = GraspEnv(host, device=dev, **small)
+    env_c = GraspEnv(host, device="cpu", **small)
+    qpos = env_c._draw(torch.Generator().manual_seed(7), ENV_CHECK)
+    es_g, es_c = env_g._settle(qpos.to(dev)), env_c._settle(qpos)
+    d = es_c.depth.numpy()
+    floor = np.argwhere(d[0] > 1.3)
+    floor = floor[floor[:, 0] >= IMAGE - 10][0]           # beyond the bin
+    acts = closest_pixels(es_c.depth)
+    acts[0, 0] = int(floor[0]) * IMAGE + int(floor[1])
+    steps = sum(env_g._phase_budgets())
+    log(f"grasping env (GraspEnv.step), object pile, B={ENV_CHECK}, "
+        f"budget_scale="
+        f"0.005 ({steps} phase steps), iterations=30, ncon={NCON}, "
+        f"{IMAGE} x {IMAGE}: kernels vs the CPU's plain path")
+    (es2, rew, _, info), wall, n = counted(
+        wrappers, lambda: env_g.step(es_g, acts.to(dev)))
+    es2c, rewc, _, infoc = env_c.step(es_c, acts)
+    for k in FLAGS:
+        log(f"  flag {k}: card {info['phases'][k].tolist()}, CPU "
+            f"{infoc['phases'][k].tolist()}")
+        if not torch.equal(info["phases"][k].cpu(), infoc["phases"][k]):
+            raise AssertionError(f"flag {k} differs between card and CPU")
+    log(f"  reward: card {rew.tolist()}, CPU {rewc.tolist()}; grasped "
+        f"{info['grasped'].tolist()}")
+    if not (torch.equal(rew.cpu(), rewc)
+            and torch.equal(info["grasped"].cpu(), infoc["grasped"])):
+        raise AssertionError("reward or grasped differ between card and CPU")
+    check("env step", float((es2.sim.qpos.cpu() - es2c.sim.qpos).abs().max()),
+          1e-4, "max |qpos card - qpos CPU|")
+    casts = []
+    for env, sim in ((env_g, es2.sim), (env_c, es2c.sim)):
+        tab = raycast.render_tables(env.model, env.cam)
+        par = raycast.geom_table(env.model, fk(env.model, sim.qpos),
+                                 env.cam)[0]
+        casts.append([x.cpu() for x in cuda_raycast.cast_rays(
+            par, tab.code, tab.faces, env.cam.dirs, tab.cull)])
+    (s_g, gid_g, _), (s_c, gid_c, n_c) = casts
+    same = gid_g == gid_c
+    share = float(same.float().mean())
+    ddiff = float((es2.depth.cpu() - es2c.depth).abs().flip(1, 2).reshape(
+        same.shape)[same].max())
+    # a pose difference moves a surface along its normal; the ray's depth
+    # moves by that over |n.d| (large where the ray grazes a face)
+    ndot = (n_c * env_c.cam.dirs).sum(-1).abs()
+    disp = float(((s_g - s_c).abs() * ndot)[same].max())
+    log(f"  observation: the winning geom agrees on {share:.4%} of the "
+        f"pixels (limit 99.9%); where it does, max |depth card - depth CPU| "
+        f"{ddiff:.3e} m")
+    if share < 0.999:
+        raise AssertionError("the observations' geoms differ")
+    check("observation", disp, CAST_DISP, "max |s card - s CPU| x |n.d| "
+          "where the geom agrees (m): the surface's offset along its normal")
+    log(f"  launches in the card's step ({wall:.2f} s): {n}")
+    for k in OBJ_COLLIDE:
+        if n[k] != steps:
+            raise AssertionError(f"{k}: {n[k]} launches over {steps} "
+                                 f"contact steps")
+    if n["raycast"] != 1:
+        raise AssertionError("the step's observation launched no ray cast")
+
+    # 11c. determinism: the same step again, equal to the bit
+    again = env_g.step(es_g, acts.to(dev))
+    same = (all(torch.equal(a, b) for a, b in (
+        (again[0].sim.qpos, es2.sim.qpos), (again[0].sim.qvel, es2.sim.qvel),
+        (again[0].rgb, es2.rgb), (again[0].depth, es2.depth),
+        (again[1], rew))) and all(torch.equal(again[3]["phases"][k],
+                                              info["phases"][k])
+                                  for k in FLAGS))
+    log(f"  determinism: a second step from the same EnvState equals the "
+        f"first to the bit: {same}")
+    if not same:
+        raise AssertionError("GraspEnv.step does not repeat to the bit")
+    del env_g, env_c, es_g, es_c, es2, es2c, again
+
+    # 11d. bench.py's bench_env at its quick scale: reset, then one full
+    # pick per scenario at each scenario's closest pixel
+    for Bt in ENV_BATCHES:
+        env = GraspEnv(host, device=dev, budget_scale=ENV_SCALE, **env_kw)
+        gen = torch.Generator(device=dev).manual_seed(Bt)
+        es, reset_s, _ = counted(wrappers, lambda: env.reset(gen, Bt))
+        acts = closest_pixels(es.depth).to(dev)
+        (es2, rew, _, info), step_s, n = counted(wrappers,
+                                                 lambda: env.step(es, acts))
+        steps = sum(env._phase_budgets())
+        if not set(rew.tolist()) <= {0.0, 1.0}:
+            raise AssertionError("env.step gave a reward outside {0, 1}")
+        # the contact model can diverge in a pile (ROADMAP Queue 3): the
+        # witnessed scenarios do in the JAX package too, from the card's
+        # recorded state (tests/test_torch_env_divergence.py); any other
+        # that goes non-finite fails the run
+        ok = (torch.isfinite(es2.sim.qpos).all(1)
+              & torch.isfinite(es2.sim.qvel).all(1))
+        lost = (~ok).nonzero().flatten().tolist()
+        log(f"  scenarios whose state went non-finite in the pick: {lost} "
+            f"(witnessed: {list(DIVERGES.get(Bt, ()))})")
+        if set(lost) - set(DIVERGES.get(Bt, ())):
+            raise AssertionError(f"env.step: scenarios {lost} went "
+                                 f"non-finite")
+        log(f"env (bench_env, quick scale {ENV_SCALE}) B={Bt}, "
+            f"iterations=30, "
+            f"ncon={NCON}, {IMAGE} x {IMAGE} ({smi}): reset {reset_s:.2f} s "
+            f"({Bt / reset_s:.2f} resets/s), step {step_s:.2f} s "
+            f"({Bt / step_s:.3f} picks/s), {steps} contact steps: "
+            f"{step_s / steps * 1e3:.1f} ms of wall per contact step; "
+            f"reward mean {float(rew.mean()):.3f} ({float(rew[ok].mean()):.3f} "
+            f"over the finite ones); launches per step "
+            f"{n}")
+        for k in OBJ_COLLIDE + ("raycast",):
+            if n[k] < 1:
+                raise AssertionError(f"env.step launched no {k}")
+        del env, es, es2
+
+    # 11e. the MPC pick policy: step_mpc at B=64 with the planner of 11a
+    Bp = ENV_BATCHES[-1]
+    env = GraspEnv(host, mpc=mpc, device=dev, budget_scale=ENV_SCALE,
+                   **env_kw)
+    es = env.reset(torch.Generator(device=dev).manual_seed(3), Bp)
+    acts = closest_pixels(es.depth).to(dev)
+    (es2, rew, _, info), wall, n = counted(
+        wrappers, lambda: env.step_mpc(es, acts))
+    log(f"env.step_mpc B={Bp}, GraspMPC H={Hm} substeps={SUBSTEPS} "
+        f"iters={ITERS}, budget_scale={ENV_SCALE} ({smi}): {wall:.2f} s, "
+        f"reward "
+        f"mean {float(rew.mean()):.3f}; launches {n}")
+    if not (bool(torch.isfinite(es2.sim.qpos).all())
+            and bool(torch.isfinite(es2.sim.qvel).all())
+            and set(rew.tolist()) <= {0.0, 1.0}):
+        raise AssertionError("step_mpc returned non-finite states or a "
+                             "reward outside {0, 1}")
+    for k in chain + OBJ_COLLIDE + ("raycast",):
+        if n[k] < 1:
+            raise AssertionError(f"step_mpc launched no {k}")
+
+
 def timed_solves(mpc, xr0, targets, x0, q_refs, first=None,
                  lin_check=False) -> dict:
     """Phase 4's solves at the shapes of ``mpc`` (B=4096, H=64, substeps=8,
@@ -1644,31 +1934,6 @@ def main() -> int:
     # float64 on the same inputs, the kernel's error is at most twice the
     # plain f32 version's (plus 1e-6 of the output's scale)
     log(f"kernels: B={B} H={H} substeps={SUBSTEPS}")
-
-    def compare(name, outs, kern, plain_fn, args64):
-        """Hold every output (named in ``outs``) of a kernel by that rule,
-        each at its own plain-f32 error; returns (largest direct difference
-        over the outputs, the plain version's ms)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain = plain_fn()
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        ref = plain_fn(*args64)
-        errs = [(float((k.double() - r).abs().max() / r.abs().max()),
-                 float((p.double() - r).abs().max() / r.abs().max()),
-                 float((k - p).abs().max()))
-                for k, p, r in zip(kern, plain, ref)]
-        for out, (ek, ep, diff) in zip(outs, errs):
-            log(f"  {name} {out}: max |kernel - plain| {diff:.3e}; error vs "
-                f"float64 (max |d|/max|ref|): kernel {ek:.3e}, plain {ep:.3e}")
-        for out, (ek, ep, _) in zip(outs, errs):
-            check(f"{name} {out}", ek, 2 * ep + 1e-6,
-                  "kernel error vs float64")
-        return max(e[2] for e in errs), plain_ms
-
-    def f64(*ts):
-        return [t.double() if torch.is_tensor(t) else t for t in ts]
 
     # rollout_open, held by that rule at B=4096 and at a ragged B=509 (over
     # H=8 knots: its plain version is launch-bound, as rollout_closed's),
@@ -2108,6 +2373,11 @@ def main() -> int:
     # 10. its RGB-D observation
     table["raycast"] = observation(log, obj_model, settled)
     stamp("phase 10")
+    del obj_model, settled
+
+    # 11. the grasping environment and the MPC pick policy
+    grasp_env(log, smi)
+    stamp("phase 11")
 
     print(json.dumps({"kernels": [table[name] for name in
                                   names + OBJ_COLLIDE + ("raycast",)]}))

@@ -17,7 +17,12 @@ RGB-D observation, and what they stand on:
   render/   the camera, the batched ray-cast RGB-D renderer and its
             ray-cast kernel (cuda_raycast.py)
   mpc/      Riccati backward (torch and the CUDA kernel), the batched and
-            the generic iLQR, GraspMPC
+            the generic iLQR, GraspMPC, and the MPC pick policy
+            (policy.py: MPCGraspPolicy)
+  control/  the PID bank, batched IK and the Controller's motion
+            primitives (masked tolerance loops over the contact step)
+  env/      the batched grasping environment GraspEnv: reset, the
+            13-phase pick (step) and the MPC pick (step_mpc)
   csrc/     the kernels' CUDA sources, built by _build.py with nvcc
   assets/   ur5_2finger_arm.xml (the 8-dof arm scene),
             ur5_2finger_pile.xml (the arm, a bin and 40 free boxes and
@@ -48,6 +53,17 @@ Entry points::
     model = load_model(OBJECTS)
     cam = make_camera(model, "top_down", 200, 200)
     rgb, depth = render_rgbd(model, fk(model, state.qpos), cam)
+
+    import torch
+    from mujoco_rl_ur5_tpu_torch.env import GraspEnv
+    env = GraspEnv(load_model(OBJECTS), ncon=128, iterations=30,
+                   mpc=GraspMPC.from_scene(OBJECTS, horizon=16))
+    es = env.reset(torch.Generator(device="cuda").manual_seed(0), 64)
+    es, reward, done, info = env.step(es, actions)     # (B, 2) [pixel, rot]
+    es, reward, done, info = env.step_mpc(es, actions)
+
+    from mujoco_rl_ur5_tpu_torch.control import Controller
+    ctl = Controller(model)                 # move_group, move_ee, grasp, ...
 
 The package imports torch and numpy, never jax, and nothing of
 mujoco_rl_ur5_tpu.

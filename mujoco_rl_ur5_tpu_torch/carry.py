@@ -13,6 +13,14 @@ leaves (``{name: array}``), so that both packages step on identical
 ``dof_invweight0``/``geom_invweight0`` and pair tables (the two compilers
 compute the invweights in float32 with different sums). ``warm_from_arrays``
 carries the contact solver's warm start, a pair of arrays.
+
+``state_from_arrays``, ``pid_params_from_arrays``, ``pid_state_from_arrays``,
+``ctrl_state_from_arrays``, ``env_state_from_arrays`` and
+``ilqr_from_arrays`` carry the JAX package's State, PIDParams, PIDState,
+CtrlState, EnvState and ILQRResult: each takes a dict of numpy arrays (nested
+dicts for the nested fields) or any object with those attributes, and keeps
+each array's dtype. The JAX EnvState's PRNG key has no counterpart (the
+port draws from a ``torch.Generator``) and is not read.
 """
 
 from __future__ import annotations
@@ -23,9 +31,14 @@ import numpy as np
 
 import torch
 
+from mujoco_rl_ur5_tpu_torch.control.controller import CtrlState
+from mujoco_rl_ur5_tpu_torch.control.pid import PIDParams, PIDState
+from mujoco_rl_ur5_tpu_torch.env.grasp_env import EnvState
+from mujoco_rl_ur5_tpu_torch.mpc.ilqr import ILQRResult
+from mujoco_rl_ur5_tpu_torch.mpc.lqr import Gains
 from mujoco_rl_ur5_tpu_torch.physics.chain import ChainPlan
 from mujoco_rl_ur5_tpu_torch.scene.model import (
-    ARRAY_FIELDS, Model, Topology,
+    ARRAY_FIELDS, Model, State, Topology,
 )
 
 PLAN_FIELDS = tuple(f.name for f in dataclasses.fields(ChainPlan))
@@ -64,3 +77,46 @@ def warm_from_arrays(warm, device="cpu"):
     scalar-row forces (B, S)) as float32 tensors on ``device``."""
     return tuple(torch.as_tensor(np.array(a, np.float32), device=device)
                  for a in warm)
+
+
+def _field(src, name):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def _fields(src, names, device) -> dict:
+    """{name: tensor on ``device``} with each array's dtype kept."""
+    return {n: torch.as_tensor(np.array(_field(src, n)), device=device)
+            for n in names}
+
+
+def state_from_arrays(src, device="cpu") -> State:
+    return State(**_fields(src, ("qpos", "qvel", "ctrl", "time"), device))
+
+
+def pid_params_from_arrays(src, device="cpu") -> PIDParams:
+    return PIDParams(**_fields(src, ("kp", "ki", "kd", "out_lo", "out_hi"),
+                               device))
+
+
+def pid_state_from_arrays(src, device="cpu") -> PIDState:
+    return PIDState(**_fields(src, ("integral", "last_meas", "primed"),
+                              device))
+
+
+def ctrl_state_from_arrays(src, device="cpu") -> CtrlState:
+    return CtrlState(
+        pid=pid_state_from_arrays(_field(src, "pid"), device),
+        setpoints=_fields(src, ("setpoints",), device)["setpoints"],
+        params=pid_params_from_arrays(_field(src, "params"), device))
+
+
+def env_state_from_arrays(src, device="cpu") -> EnvState:
+    return EnvState(sim=state_from_arrays(_field(src, "sim"), device),
+                    ctl=ctrl_state_from_arrays(_field(src, "ctl"), device),
+                    **_fields(src, ("rgb", "depth"), device))
+
+
+def ilqr_from_arrays(src, device="cpu") -> ILQRResult:
+    return ILQRResult(gains=Gains(**_fields(_field(src, "gains"),
+                                            ("K", "d", "S", "s"), device)),
+                      **_fields(src, ("xs", "us", "cost"), device))

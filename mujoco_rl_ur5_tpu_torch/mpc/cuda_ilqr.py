@@ -5,7 +5,8 @@ its kernels replaced by the port's:
 
   * open-loop rollout     -> physics/cuda_chain.rollout_open   (1 launch)
   * linearization         -> physics/cuda_chain.lin_fd_fast    (1 lin_fd
-    launch: one-substep forward differences composed by matmul)
+    launch: one-substep forward differences, composed over the substeps
+    inside the same launch)
   * stage quadratization  -> ``quad``: in reach mode
     physics/cuda_chain.ee_quad_gn (1 launch: FK, geometric Jacobians and
     the full stage blocks X and g for all B x H knots); in track mode

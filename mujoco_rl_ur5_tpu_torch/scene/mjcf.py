@@ -11,7 +11,8 @@ what the arm submodel, the contact scenes and the observation read:
     (their ``rgb1``) and materials (``rgba``, or their texture's colour);
   * nested ``<default>`` classes (joint, geom and motor attributes) and
     ``<include>`` files, resolved relative to the including file;
-  * body trees with ``pos`` and ``quat``/``axisangle``/``euler``;
+  * body trees with ``pos`` and ``quat``/``axisangle``/``euler``/
+    ``xyaxes``/``zaxis``;
   * hinge, slide, ball and free joints (``axis``, ``pos``, ``ref``,
     ``damping``, ``armature``, ``range``, ``limited``);
   * ``<inertial>`` with ``diaginertia`` or ``fullinertia``;
@@ -33,6 +34,8 @@ import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from mujoco_rl_ur5_tpu_torch.scene.mesh import _mat2quat
 
 # MuJoCo enums (values match mjtJoint / mjtGeom)
 JNT_FREE, JNT_BALL, JNT_SLIDE, JNT_HINGE = 0, 1, 2, 3
@@ -196,8 +199,10 @@ def quat_mul(u, v) -> np.ndarray:
 
 
 def _orientation(el, angle_deg: bool) -> np.ndarray:
-    """quat / axisangle / euler (intrinsic xyz, MuJoCo's default) -> quat,
-    from an element or an attribute dict (a geom's, defaults resolved)."""
+    """quat / axisangle / euler (intrinsic xyz, MuJoCo's default) / xyaxes
+    (Gram-Schmidt) / zaxis (the minimal rotation from +z) -> quat, in that
+    order of precedence, from an element or an attribute dict (a geom's,
+    defaults resolved)."""
     scale = np.pi / 180.0 if angle_deg else 1.0
     if el.get("quat") is not None:
         q = _vec(el.get("quat"))
@@ -211,10 +216,20 @@ def _orientation(el, angle_deg: bool) -> np.ndarray:
         for ax, ang in zip(np.eye(3), _vec(el.get("euler")) * scale):
             q = quat_mul(q, quat_from_axisangle(ax, ang))
         return q
-    for attr in ("xyaxes", "zaxis"):
-        if el.get(attr) is not None:
-            raise ValueError(f"MJCF orientation '{attr}' is not supported "
-                             "by the port's parser")
+    if el.get("xyaxes") is not None:
+        v = _vec(el.get("xyaxes"))
+        x = v[:3] / np.linalg.norm(v[:3])
+        y = v[3:6] - np.dot(v[3:6], x) * x
+        y /= np.linalg.norm(y)
+        return _mat2quat(np.stack([x, y, np.cross(x, y)], axis=1))
+    if el.get("zaxis") is not None:
+        z = _vec(el.get("zaxis"))
+        z = z / np.linalg.norm(z)
+        axis = np.cross([0.0, 0, 1], z)
+        s = np.linalg.norm(axis)
+        if s < 1e-12:                     # +z, or -z: a half turn about x
+            return np.array([1.0, 0, 0, 0] if z[2] > 0 else [0.0, 1, 0, 0])
+        return quat_from_axisangle(axis / s, float(np.arctan2(s, z[2])))
     return np.array([1.0, 0, 0, 0])
 
 

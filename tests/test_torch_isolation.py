@@ -6,7 +6,11 @@ falls back to the CPU when CUDA is asked for.
   names them (imports inside functions included).
 * Each kernel wrapper given CPU tensors returns its plain version's result
   and launches nothing; a tensor on any other non-CUDA device raises.
-* ``GraspMPC`` asked for ``cuda`` where there is none raises.
+* ``GraspMPC``, ``Controller``, ``GraspEnv`` and ``MPCGraspPolicy`` asked
+  for ``cuda`` where there is none raise (the default device included).
+* The subpackages export what the JAX package's export, where the port
+  has them, each name the port's own object (``from
+  mujoco_rl_ur5_tpu_torch.physics import constraints, dynamics, fk``).
 * ``plan_from_arrays`` carries the JAX package's chain plan across: the port
   computes the same rollout on it as on the plan it loads itself.
 * The six narrowphase kernels (csrc/collide_*.cu) compile on the host with
@@ -65,8 +69,10 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert len(mods) >= 24
+    assert len(mods) >= 33
     for m in ("mpc.ilqr", "mpc.lqr", "mpc.cuda_ilqr", "mpc.grasp_mpc",
+              "mpc.policy", "control.pid", "control.ik",
+              "control.controller", "control.introspect", "env.grasp_env",
               "physics.chain", "physics.cuda_chain", "ops.blockchol",
               "ops.spatial", "ops.consts", "physics.kinematics",
               "physics.dynamics", "physics.collision",
@@ -194,6 +200,80 @@ def test_cuda_without_a_card_raises(monkeypatch):
         GraspMPC.from_scene(ASSET, horizon=3, substeps=2)   # default device
     with pytest.raises(RuntimeError, match="cuda"):
         GraspMPC.from_scene(ASSET, horizon=3, substeps=2, device="cuda:0")
+
+
+def test_entry_points_on_cuda_without_a_card_raise(monkeypatch, mpc):
+    from mujoco_rl_ur5_tpu_torch.control import Controller
+    from mujoco_rl_ur5_tpu_torch.env import GraspEnv
+    from mujoco_rl_ur5_tpu_torch.mpc import MPCGraspPolicy
+    from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    host = compile_file(OBJECTS)
+    for make in (lambda d: Controller(host, **d),
+                 lambda d: GraspEnv(host, image_width=8, image_height=8,
+                                    **d),
+                 lambda d: MPCGraspPolicy(host, mpc, **d)):
+        for kw in ({}, {"device": "cuda"}, {"device": "cuda:0"}):
+            with pytest.raises(RuntimeError, match="cuda"):
+                make(kw)
+
+
+EXPORTS = {
+    "physics": {"Kin": "physics.kinematics", "fk": "physics.kinematics",
+                "step": "physics.dynamics", "forward": "physics.dynamics",
+                "constraints": "physics.constraints",
+                "dynamics": "physics.dynamics"},
+    "render": {n: "render.camera" for n in ("Camera", "make_camera",
+                                            "pixel_2_world",
+                                            "world_2_pixel")}
+    | {n: "render.raycast" for n in ("render_depth", "render_rgbd")},
+    "scene": {"compile_spec": "scene.compile", "load_model": "scene.compile",
+              "Model": "scene.model", "State": "scene.model",
+              "Topology": "scene.model", "make_state": "scene.model"},
+    "mpc": {"LQR": "mpc.lqr", "Gains": "mpc.lqr",
+            "backward_sequential": "mpc.lqr",
+            "backward_parallel": "mpc.lqr", "rollout_policy": "mpc.lqr",
+            "ILQRResult": "mpc.ilqr", "ilqr": "mpc.ilqr",
+            "ilqr_chain_batch": "mpc.cuda_ilqr", "GraspMPC": "mpc.grasp_mpc",
+            "MPCWeights": "mpc.grasp_mpc", "MPCGraspPolicy": "mpc.policy",
+            "PickResult": "mpc.policy"},
+    "ops": {"spatial": "ops.spatial"},
+    "control": {n: "control.pid" for n in ("PIDParams", "PIDState",
+                                           "pid_init", "pid_output",
+                                           "reference_gains")}
+    | {n: "control.controller" for n in ("Controller", "CtrlState",
+                                         "MoveResult")}
+    | {"ik_solve": "control.ik"}
+    | {n: "control.introspect" for n in ("show_model_info",
+                                         "display_current_values",
+                                         "joint_angle_plot")},
+    "env": {"EnvState": "env.grasp_env", "GraspEnv": "env.grasp_env"},
+}
+
+
+# the exports that are submodules (mpc's ``ilqr`` is the function, which
+# shadows its module there as in the JAX package)
+SUBMODULES = {("physics", "constraints"), ("physics", "dynamics"),
+              ("ops", "spatial")}
+
+
+@pytest.mark.parametrize("package", sorted(EXPORTS))
+def test_subpackage_exports_are_the_ports_own(package):
+    import importlib
+
+    pkg = importlib.import_module("mujoco_rl_ur5_tpu_torch." + package)
+    for name, where in EXPORTS[package].items():
+        mod = importlib.import_module("mujoco_rl_ur5_tpu_torch." + where)
+        obj = getattr(pkg, name)
+        want = mod if (package, name) in SUBMODULES else getattr(mod, name)
+        assert obj is want, (package, name)
+        owner = obj.__name__ if hasattr(obj, "__file__") else obj.__module__
+        assert owner.startswith("mujoco_rl_ur5_tpu_torch."), (name, owner)
+    if hasattr(pkg, "__all__"):
+        assert set(pkg.__all__) <= set(EXPORTS[package])
+    from mujoco_rl_ur5_tpu_torch.physics import constraints, dynamics, fk
+    assert fk is dynamics.fk and constraints.init_warm
 
 
 def test_kernel_build_key_follows_the_emitted_source(mpc):
