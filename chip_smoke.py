@@ -136,7 +136,26 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      state non-finite but those witnessed to diverge in the JAX package
      too (DIVERGES); step_mpc at B=64 with that planner (H=16, substeps=8,
      iters=6): its wall time and launches, finite states and rewards in
-     {0, 1}.
+     {0, 1};
+ 12. the learning path: one GraspAgent.train_step at the reference's
+     widths (200 x 200 x 4, 6 rotations, batch 12, seeded transitions) on
+     the card against the CPU from the same weights, TF32 off: in float32
+     the logits at the actions (1e-4 of their largest), the loss (1e-5
+     relative) and the BatchNorm running statistics (1e-5 of each
+     tensor's largest entry); in float64 the same and every gradient (1e-3
+     of its tensor's norm: in float32 the BatchNorm backward's roundoff
+     alone moves a gradient by 2e-2 of its norm, printed beside it); the
+     first-index argmax on a map with planted ties; train_step's time in
+     float32 and bfloat16 (CUDA events, median of 10) with its products'
+     and convolutions' FLOP count and bound, its loss falling on the
+     batch; the Trainer (learn/train.py) on the object pile at B=16, 1
+     episode x 3 env steps, budget_scale=0.01, iterations=30, the agent at
+     its defaults (bfloat16, batch 12, memory 2000): 48 steps and
+     transitions, rewards in {0, 1}, two finite losses, each collide kernel
+     launched once per contact step and the ray cast once per observe,
+     the wall per reset, env step and learn and transitions/s; its
+     checkpoint saved and restored equal to the bit, and a learn step from
+     the restored state.
 
 Each phase's wall time and the whole run's are printed as it ends.
 
@@ -167,6 +186,7 @@ import torch
 # card peaks (NVIDIA H100 SXM data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12       # float32 outside the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12     # bfloat16 on the tensor cores, dense
 # cycles per dependent level of a latency floor: an f32 (fused) arithmetic
 # operation, and an exchange between lanes (a shuffle, or a shared-memory
 # store, barrier and load); taken as 4 and 30, the order of the dependent
@@ -1687,6 +1707,284 @@ def grasp_env(log, smi: str) -> None:
             raise AssertionError(f"step_mpc launched no {k}")
 
 
+# phase 12: the learning path. 12a: the learner at the reference's widths
+# and batch (200 x 200 x 4 input, 6 rotations, batch 12), one train_step
+# on the card against the CPU from the same weights, float32 with TF32 off;
+# 12b: the Trainer on the object pile, B=16, 1 episode x 3 env steps at
+# budget_scale 0.01 (learning at steps 2 and 3); 12c: its checkpoint
+LEARN_SEED, LEARN_TIMED = 12, 10
+TRAIN_ENVS, TRAIN_STEPS, TRAIN_SCALE = 16, 3, 0.01
+# card vs CPU: the train-mode logits at the actions (of their largest), the
+# loss (relative), each gradient (of its tensor's norm), each BatchNorm
+# running statistic (of its tensor's largest entry)
+LEARN_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-3, "stats": 1e-5}
+
+
+def one_train_step(agent, ts, args) -> dict:
+    """``agent.train_step`` once (synchronised): the logits at the actions,
+    the loss, every gradient and BatchNorm statistic after it (float64 on
+    the host), and the wall seconds."""
+    seen = {}
+    loss_of = agent.loss
+
+    def loss(*a, **k):
+        out = loss_of(*a, **k)
+        seen["q"] = out[1].detach()
+        return out
+
+    agent.loss = loss
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, value = agent.train_step(ts, *args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del agent.loss
+    return {"q": seen["q"].cpu().double(), "loss": float(value),
+            "wall": wall,
+            "grads": {n: p.grad.detach().cpu().double()
+                      for n, p in ts.model.named_parameters()},
+            "stats": {n: b.cpu().double()
+                      for n, b in ts.model.named_buffers()}}
+
+
+def learning(log, smi: str) -> None:
+    """Phase 12 (see the module docstring)."""
+    import copy
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mujoco_rl_ur5_tpu_torch import OBJECTS
+    from mujoco_rl_ur5_tpu_torch.learn.agent import (
+        COUNTERS, REPLAY, AgentConfig, GraspAgent,
+    )
+    from mujoco_rl_ur5_tpu_torch.learn.networks import count_parameters
+    from mujoco_rl_ur5_tpu_torch.learn.train import Trainer
+    from mujoco_rl_ur5_tpu_torch.utils.config import (
+        Config, EnvConfig, SceneConfig, SolverConfig, TrainConfig,
+    )
+
+    # 12a. one train_step on the card and on the CPU from the same weights,
+    # in float32 and in float64. The gradients are held in float64: in
+    # float32 the BatchNorm backward's cancellation leaves the CPU's own
+    # gradient up to 1.9e-2 of a tensor's norm from its float64 gradient at
+    # this batch (printed below), beyond any limit that would catch a fault
+    cfg = AgentConfig(dtype="float32")
+    on_cpu, on_card = GraspAgent(cfg, device="cpu"), GraspAgent(cfg)
+    ts_cpu = on_cpu.init(torch.Generator().manual_seed(LEARN_SEED))
+    nb, hw = cfg.batch_size, cfg.height * cfg.width
+    rng = np.random.default_rng(LEARN_SEED)
+    s = torch.from_numpy(rng.uniform(
+        0, 1, (nb, cfg.height, cfg.width, 4)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(0, on_cpu.n_actions, nb))
+    r = torch.from_numpy((rng.uniform(size=nb) > 0.5).astype(np.float32))
+    log(f"learner (GraspAgent.train_step): {count_parameters(ts_cpu.model)} "
+        f"parameters, {nb} x {cfg.height} x {cfg.width} x 4, "
+        f"{cfg.rotations} rotations, TF32 off: card vs CPU")
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        for where, agent in (("card", on_card), ("CPU", on_cpu)):
+            model = copy.deepcopy(ts_cpu.model).to(agent.device, dtype)
+            res[where, dtype] = one_train_step(
+                agent, agent.state_for(model),
+                (s.to(agent.device), a.to(agent.device),
+                 r.to(agent.device)))
+        card, cpu = res["card", dtype], res["CPU", dtype]
+        name = str(dtype).split(".")[1]
+        log(f"  {name}: one train_step, card {card['wall']:.3f} s (first "
+            f"call), CPU {cpu['wall']:.2f} s; loss card {card['loss']:.9f}, "
+            f"CPU {cpu['loss']:.9f}")
+        check(f"learner {name} logits", float(
+            (card["q"] - cpu["q"]).abs().max() / cpu["q"].abs().max()),
+            LEARN_TOL["logits"], "max |q card - q CPU| / max |q| at the "
+            "actions, train mode")
+        check(f"learner {name} loss", abs(card["loss"] / cpu["loss"] - 1),
+              LEARN_TOL["loss"], "|loss card / loss CPU - 1|")
+        for of, what, scale in (
+                ("stats", "stats", lambda t: t.abs().max().clamp_min(1e-30)),
+                ("grads", "grad", lambda t: t.norm())):
+            errs = {n: float((card[of][n] - cpu[of][n]).abs().max()
+                             / scale(cpu[of][n]))
+                    for n in cpu[of] if cpu[of][n].is_floating_point()}
+            worst = max(errs, key=errs.get)
+            if dtype == torch.float32 and of == "grads":
+                log(f"  float32 grads, card vs CPU (not held: float32's "
+                    f"own roundoff, see the float64 check): largest "
+                    f"{errs[worst]:.3e} of the norm of {worst}")
+                continue
+            check(f"learner {name} {of} ({worst})", errs[worst],
+                  LEARN_TOL[what], "card vs CPU, largest over the tensors"
+                  + (" (of the tensor's norm)" if of == "grads" else
+                     " (of the tensor's largest entry)"))
+    g64 = res["CPU", torch.float64]["grads"]
+    for where in ("card", "CPU"):
+        g32 = res[where, torch.float32]["grads"]
+        e = {n: float((g32[n] - g64[n]).abs().max() / g64[n].norm())
+             for n in g64}
+        n = max(e, key=e.get)
+        log(f"  float32 gradient on the {where} vs the CPU's float64: "
+            f"largest {e[n]:.3e} of the norm of {n}")
+    # the greedy action's tie rule on the card: the first flat index
+    q = torch.randn(4, cfg.rotations * hw, generator=torch.Generator()
+                    .manual_seed(LEARN_SEED))
+    top = float(q.max()) + 1
+    for row, cols in enumerate(((5, 77, 3 * hw), (0, hw - 1), (2 * hw + 9,
+                                                               2 * hw + 8),
+                                (6 * hw - 1, 4 * hw))):
+        q[row, list(cols)] = top
+    first = [min(c) for c in ((5, 77, 3 * hw), (0, hw - 1),
+                              (2 * hw + 9, 2 * hw + 8), (6 * hw - 1, 4 * hw))]
+    got = q.cuda().argmax(1).tolist()
+    log(f"  argmax with planted ties: card {got}, CPU "
+        f"{q.argmax(1).tolist()}, first index {first}")
+    if got != first or q.argmax(1).tolist() != first:
+        raise AssertionError("argmax does not take the first tied index")
+    del res, card, cpu, ts_cpu
+    # train_step's time at batch 12 (CUDA events, median of LEARN_TIMED
+    # after a warm-up), float32 and bfloat16, on the same batch: the loss
+    # must stay finite and fall
+    args = (s.cuda(), a.cuda(), r.cuda())
+    for dtype in ("float32", "bfloat16"):
+        agent = GraspAgent(AgentConfig(dtype=dtype))
+        ts = agent.init(torch.Generator().manual_seed(LEARN_SEED))
+        ts, first_loss = agent.train_step(ts, *args)
+        times, losses = [], [float(first_loss)]
+        for _ in range(LEARN_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ts, loss = agent.train_step(ts, *args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        # the step's matrix products and convolutions (FlopCounterMode),
+        # against the card's peak for the dtype
+        with FlopCounterMode(display=False) as flops:
+            ts, _ = agent.train_step(ts, *args)
+        ops, ms = flops.get_total_flops(), statistics.median(times)
+        peak = (PEAK_F32_FLOP_PER_S if dtype == "float32"
+                else PEAK_BF16_FLOP_PER_S)
+        log(f"  train_step {dtype}, batch {nb} ({smi}): "
+            f"{ms:.2f} ms (median of {LEARN_TIMED}, "
+            f"CUDA events; range {min(times):.2f}-{max(times):.2f}); "
+            f"{ops / 1e9:.1f} GFLOP of products and convolutions: "
+            f"{ops / ms / 1e9:.1f} TFLOP/s, bound {ops / peak * 1e3:.2f} ms "
+            f"at {peak / 1e12:.0f} TFLOP/s; loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} over {len(losses)} steps on the batch")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"train_step {dtype}: the loss is not "
+                                 f"finite and falling: {losses}")
+        del agent, ts
+
+    # 12b. the Trainer on the object pile through the kernels
+    tcfg = Config(
+        scene=SceneConfig(path=OBJECTS),
+        solver=SolverConfig(ncon=NCON, iterations=30),
+        env=EnvConfig(image_width=IMAGE, image_height=IMAGE,
+                      budget_scale=TRAIN_SCALE),
+        train=TrainConfig(episodes=1, steps_per_episode=TRAIN_STEPS,
+                          batch_envs=TRAIN_ENVS, seed=LEARN_SEED))
+    tr = Trainer(tcfg)
+    env, agent = tr.env, tr.agent
+    walls = {"reset": [], "step": [], "learn": []}
+    losses = []
+
+    def timed(what, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            walls[what].append(time.perf_counter() - t0)
+            if what == "learn":
+                losses.append(None if out[1] is None else float(out[1]))
+            return out
+        return run
+
+    env.reset = timed("reset", env.reset)
+    env.step = timed("step", env.step)
+    agent.learn = timed("learn", agent.learn)
+    wrappers = launch_counters()
+    (ts, buf), wall, n = counted(wrappers, lambda: tr.run(verbose=False))
+    settle = env._ms_steps(1000.0 * TRAIN_SCALE)
+    steps = settle + TRAIN_STEPS * sum(env._phase_budgets())
+    rewards = buf.rewards[:buf.size]
+    moved = TRAIN_ENVS * TRAIN_STEPS
+    log(f"Trainer (learn/train.py) on the object pile: B={TRAIN_ENVS}, 1 "
+        f"episode x {TRAIN_STEPS} env steps, budget_scale={TRAIN_SCALE} "
+        f"({settle} settle + {TRAIN_STEPS} x {sum(env._phase_budgets())} "
+        f"contact steps), iterations=30, ncon={NCON}, {IMAGE} x {IMAGE}, "
+        f"the agent at its defaults (bfloat16, batch {agent.cfg.batch_size}, "
+        f"memory {agent.cfg.memory_size}) ({smi}):")
+    log(f"  wall {wall:.2f} s: reset {walls['reset'][0]:.2f} s, env steps "
+        f"{', '.join(f'{t:.2f}' for t in walls['step'])} s, learn "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in walls['learn'])} ms; "
+        f"{moved / wall:.3f} transitions/s over the run, "
+        f"{TRAIN_ENVS / statistics.median(walls['step']):.3f} per second "
+        f"of env step; "
+        f"{statistics.median(walls['step']) / (steps - settle) * TRAIN_STEPS * 1e3:.1f}"
+        f" ms of wall per contact step")
+    log(f"  step {ts.step}, replay size {buf.size}, rewards "
+        f"{rewards.tolist()}, losses {losses}, counters "
+        f"{ {k: getattr(ts, k).tolist() for k in COUNTERS} }")
+    log(f"  launches over the run: {n} (expected: each collide kernel "
+        f"{steps}, the ray cast {1 + TRAIN_STEPS})")
+    if ts.step != moved or buf.size != moved:
+        raise AssertionError(f"Trainer: step {ts.step}, size {buf.size}, "
+                             f"expected {moved}")
+    if not (bool(torch.isfinite(rewards).all())
+            and set(rewards.tolist()) <= {0.0, 1.0}):
+        raise AssertionError("Trainer: a reward outside {0, 1}")
+    trained = [x for x in losses if x is not None]
+    if len(trained) != TRAIN_STEPS - 1 or not np.isfinite(trained).all():
+        raise AssertionError(f"Trainer: learn gave losses {losses}")
+    for k in OBJ_COLLIDE:
+        if n[k] != steps:
+            raise AssertionError(f"{k}: {n[k]} launches over {steps} "
+                                 f"contact steps")
+    if n["raycast"] != 1 + TRAIN_STEPS:
+        raise AssertionError(f"the ray cast launched {n['raycast']} times "
+                             f"over {1 + TRAIN_STEPS} observes")
+
+    # 12c. the checkpoint round trip, to the bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.pt")
+        t0 = time.perf_counter()
+        agent.save(path, ts, buf)
+        save_s, size = time.perf_counter() - t0, os.path.getsize(path)
+        fresh = agent.init(torch.Generator().manual_seed(LEARN_SEED + 1))
+        t0 = time.perf_counter()
+        ts2, buf2 = agent.restore(path, fresh, agent.memory.init())
+        load_s = time.perf_counter() - t0
+    same = {
+        "parameters and statistics": all(
+            torch.equal(x, y) for x, y in zip(
+                ts.model.state_dict().values(),
+                ts2.model.state_dict().values())),
+        "optimiser state": all(
+            torch.equal(ts.optimizer.state[p][k], ts2.optimizer.state[q][k])
+            for p, q in zip(ts.model.parameters(), ts2.model.parameters())
+            for k in ts.optimizer.state[p]),
+        "counters and step": ts2.step == ts.step and all(
+            torch.equal(getattr(ts, k), getattr(ts2, k)) for k in COUNTERS),
+        "replay": (buf2.position, buf2.size) == (buf.position, buf.size)
+        and all(torch.equal(getattr(buf, f), getattr(buf2, f))
+                for f in REPLAY)}
+    log(f"  checkpoint: {size / 2**20:.1f} MiB, save {save_s:.2f} s, "
+        f"restore {load_s:.2f} s; equal to the bit: {same}")
+    if not all(same.values()):
+        raise AssertionError("the checkpoint round trip is not exact")
+    # the restored state trains on
+    ts2, loss = agent.learn(ts2, buf2, torch.Generator(
+        device=agent.device).manual_seed(LEARN_SEED))
+    log(f"  a learn step from the restored state: loss {float(loss):.4f}")
+    if not np.isfinite(float(loss)):
+        raise AssertionError("the restored state does not train")
+
+
 def timed_solves(mpc, xr0, targets, x0, q_refs, first=None,
                  lin_check=False) -> dict:
     """Phase 4's solves at the shapes of ``mpc`` (B=4096, H=64, substeps=8,
@@ -2378,6 +2676,10 @@ def main() -> int:
     # 11. the grasping environment and the MPC pick policy
     grasp_env(log, smi)
     stamp("phase 11")
+
+    # 12. the learning path
+    learning(log, smi)
+    stamp("phase 12")
 
     print(json.dumps({"kernels": [table[name] for name in
                                   names + OBJ_COLLIDE + ("raycast",)]}))

@@ -1,8 +1,9 @@
 """mujoco_rl_ur5_tpu_torch: the PyTorch/CUDA port of mujoco_rl_ur5_tpu.
 
 A second package beside the JAX one, written for one NVIDIA H100. It holds
-the batched grasp-MPC (reach and track), the batched contact step and the
-RGB-D observation, and what they stand on:
+the batched grasp-MPC (reach and track), the batched contact step, the
+RGB-D observation, the grasping environment and the grasp-DQN that learns
+on it, and what they stand on:
 
   scene/    MJCF parser and compiler (primitive and mesh geoms, STL meshes
             and their hulls, cylinder prism hulls, contact pairs,
@@ -23,6 +24,13 @@ RGB-D observation, and what they stand on:
             primitives (masked tolerance loops over the contact step)
   env/      the batched grasping environment GraspEnv: reset, the
             13-phase pick (step) and the MPC pick (step_mpc)
+  learn/    the grasp Q-network (MultidiscreteResnet, Flax's layout and
+            BatchNorm), the device-resident replay ring, the
+            shortsighted-DQN GraspAgent, normalization statistics, the
+            online Trainer and the offline pipeline (shards, dataset,
+            train_offline, generate)
+  utils/    decorators (timer, torch_trace, ...), the MetricsTracker with
+            the reference's tensorboard tags, the Config tree
   csrc/     the kernels' CUDA sources, built by _build.py with nvcc
   assets/   ur5_2finger_arm.xml (the 8-dof arm scene),
             ur5_2finger_pile.xml (the arm, a bin and 40 free boxes and
@@ -65,8 +73,14 @@ Entry points::
     from mujoco_rl_ur5_tpu_torch.control import Controller
     ctl = Controller(model)                 # move_group, move_ee, grasp, ...
 
-The package imports torch and numpy, never jax, and nothing of
-mujoco_rl_ur5_tpu.
+    from mujoco_rl_ur5_tpu_torch.learn import Trainer
+    from mujoco_rl_ur5_tpu_torch.utils import Config
+    ts, replay = Trainer(Config()).run()    # episodes of reset, eps-greedy,
+                                            # env.step, replay, learn
+    # or: python -m mujoco_rl_ur5_tpu_torch.learn.train --budget-scale 0.01
+
+The package imports torch and numpy, never jax, flax, optax or orbax, and
+nothing of mujoco_rl_ur5_tpu.
 """
 
 import os

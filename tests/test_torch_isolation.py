@@ -2,12 +2,13 @@
 falls back to the CPU when CUDA is asked for.
 
 * Importing every module of mujoco_rl_ur5_tpu_torch in a fresh interpreter
-  loads neither jax nor any module of the JAX package, and no port source
-  names them (imports inside functions included).
+  loads neither jax, flax, optax, orbax nor any module of the JAX package,
+  and no port source names them (imports inside functions included).
 * Each kernel wrapper given CPU tensors returns its plain version's result
   and launches nothing; a tensor on any other non-CUDA device raises.
-* ``GraspMPC``, ``Controller``, ``GraspEnv`` and ``MPCGraspPolicy`` asked
-  for ``cuda`` where there is none raise (the default device included).
+* ``GraspMPC``, ``Controller``, ``GraspEnv``, ``MPCGraspPolicy``,
+  ``GraspAgent``, ``ReplayBuffer`` and ``Trainer`` asked for ``cuda`` where
+  there is none raise (the default device included).
 * The subpackages export what the JAX package's export, where the port
   has them, each name the port's own object (``from
   mujoco_rl_ur5_tpu_torch.physics import constraints, dynamics, fk``).
@@ -69,8 +70,11 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert len(mods) >= 33
-    for m in ("mpc.ilqr", "mpc.lqr", "mpc.cuda_ilqr", "mpc.grasp_mpc",
+    assert len(mods) >= 46
+    for m in ("learn.networks", "learn.replay", "learn.agent",
+              "learn.normalize", "learn.train", "learn.offline",
+              "learn.generate_data", "utils.decorators", "utils.metrics",
+              "utils.config", "mpc.ilqr", "mpc.lqr", "mpc.cuda_ilqr", "mpc.grasp_mpc",
               "mpc.policy", "control.pid", "control.ik",
               "control.controller", "control.introspect", "env.grasp_env",
               "physics.chain", "physics.cuda_chain", "ops.blockchol",
@@ -83,8 +87,8 @@ def test_every_port_module_imports_without_jax():
         "import sys\n"
         f"for m in {mods!r}:\n"
         "    __import__(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m.startswith('jaxlib') or "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax') or "
         "m == 'mujoco_rl_ur5_tpu' or m.startswith('mujoco_rl_ur5_tpu.'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -94,8 +98,8 @@ def test_every_port_module_imports_without_jax():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|jaxlib|mujoco_rl_ur5_tpu)\b"
-    r"|from\s+(jax|jaxlib)\b"
+    r"^\s*(import\s+(jax|jaxlib|flax|optax|orbax|mujoco_rl_ur5_tpu)\b"
+    r"|from\s+(jax|jaxlib|flax|optax|orbax)\b"
     r"|from\s+mujoco_rl_ur5_tpu(\.|\s+import))", re.M)
 
 
@@ -205,15 +209,22 @@ def test_cuda_without_a_card_raises(monkeypatch):
 def test_entry_points_on_cuda_without_a_card_raise(monkeypatch, mpc):
     from mujoco_rl_ur5_tpu_torch.control import Controller
     from mujoco_rl_ur5_tpu_torch.env import GraspEnv
+    from mujoco_rl_ur5_tpu_torch.learn import (
+        AgentConfig, GraspAgent, ReplayBuffer, Trainer,
+    )
     from mujoco_rl_ur5_tpu_torch.mpc import MPCGraspPolicy
     from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
+    from mujoco_rl_ur5_tpu_torch.utils import Config
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     host = compile_file(OBJECTS)
     for make in (lambda d: Controller(host, **d),
                  lambda d: GraspEnv(host, image_width=8, image_height=8,
                                     **d),
-                 lambda d: MPCGraspPolicy(host, mpc, **d)):
+                 lambda d: MPCGraspPolicy(host, mpc, **d),
+                 lambda d: GraspAgent(AgentConfig(width=8, height=8), **d),
+                 lambda d: ReplayBuffer(4, (8, 8, 4), **d),
+                 lambda d: Trainer(Config(), **d)):
         for kw in ({}, {"device": "cuda"}, {"device": "cuda:0"}):
             with pytest.raises(RuntimeError, match="cuda"):
                 make(kw)
@@ -249,7 +260,32 @@ EXPORTS = {
                                          "display_current_values",
                                          "joint_angle_plot")},
     "env": {"EnvState": "env.grasp_env", "GraspEnv": "env.grasp_env"},
+    "learn": {n: "learn.networks" for n in (
+        "MultidiscreteResnet", "multidiscrete_resnet", "resnet",
+        "policy_resnet", "count_parameters")}
+    | {"ReplayBuffer": "learn.replay", "GraspAgent": "learn.agent",
+       "AgentConfig": "learn.agent", "Trainer": "learn.train"},
+    "utils": {n: "utils.decorators" for n in (
+        "timer", "debug", "typeassert", "dict2list", "block_timer",
+        "torch_trace")}
+    | {"MetricsTracker": "utils.metrics"}
+    | {n: "utils.config" for n in ("SceneConfig", "SolverConfig",
+                                   "EnvConfig", "TrainConfig", "MeshConfig",
+                                   "Config")},
 }
+
+
+def test_learn_and_utils_export_the_jax_packages_names():
+    """learn/ and utils/ export every name of the JAX package's, the JAX
+    package's ``jax_trace`` as the port's ``torch_trace``."""
+    import mujoco_rl_ur5_tpu.learn as jlearn
+    import mujoco_rl_ur5_tpu.utils as jutils
+    import mujoco_rl_ur5_tpu_torch.learn as learn
+    import mujoco_rl_ur5_tpu_torch.utils as utils
+
+    assert learn.__all__ == jlearn.__all__
+    assert utils.__all__ == [n.replace("jax_trace", "torch_trace")
+                             for n in jutils.__all__]
 
 
 # the exports that are submodules (mpc's ``ilqr`` is the function, which
