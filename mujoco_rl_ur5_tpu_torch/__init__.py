@@ -2,8 +2,9 @@
 
 A second package beside the JAX one, written for one NVIDIA H100. It holds
 the batched grasp-MPC (reach and track), the batched contact step, the
-RGB-D observation, the grasping environment and the grasp-DQN that learns
-on it, and what they stand on:
+RGB-D observation, the grasping and reacher environments with their
+gymnasium wrapper, the grasp-DQN that learns on them, its data- and
+tensor-parallel layer, and what they stand on:
 
   scene/    MJCF parser and compiler (primitive and mesh geoms, STL meshes
             and their hulls, cylinder prism hulls, contact pairs,
@@ -23,7 +24,9 @@ on it, and what they stand on:
   control/  the PID bank, batched IK and the Controller's motion
             primitives (masked tolerance loops over the contact step)
   env/      the batched grasping environment GraspEnv: reset, the
-            13-phase pick (step) and the MPC pick (step_mpc)
+            13-phase pick (step) and the MPC pick (step_mpc); the reacher
+            ReacherEnv (reach_ik); the gymnasium wrapper GrasperEnv
+            ("mujoco_rl_ur5_tpu_torch/Grasper-v0")
   learn/    the grasp Q-network (MultidiscreteResnet, Flax's layout and
             BatchNorm), the device-resident replay ring, the
             shortsighted-DQN GraspAgent, normalization statistics, the
@@ -31,13 +34,19 @@ on it, and what they stand on:
             train_offline, generate)
   utils/    decorators (timer, torch_trace, ...), the MetricsTracker with
             the reference's tensorboard tags, the Config tree
+  parallel/ ("data", "model") meshes over torch.distributed ranks, batch
+            sharding, the data-parallel learner and env steps, the
+            tensor-parallel placement, process-group start-up
+  examples/ the controller walkthrough and the random gymnasium agent
   csrc/     the kernels' CUDA sources, built by _build.py with nvcc
   assets/   ur5_2finger_arm.xml (the 8-dof arm scene),
             ur5_2finger_pile.xml (the arm, a bin and 40 free boxes and
             cylinders), written by hand, and ur5_2finger_objects.xml (the
             reference pile's 10 spheres, 10 boxes, 10 cylinders and 10
-            capsules, mesh finger pads finger_pad.stl, a top_down camera),
-            written by make_objects.py
+            capsules, mesh finger pads finger_pad.stl, a top_down and a
+            side camera), written by make_objects.py, and
+            ur5_2finger_reacher.xml (the arm and a target on three slide
+            joints), written by hand
 
 Entry points::
 
@@ -79,6 +88,17 @@ Entry points::
                                             # env.step, replay, learn
     # or: python -m mujoco_rl_ur5_tpu_torch.learn.train --budget-scale 0.01
 
+    from mujoco_rl_ur5_tpu_torch.env import ReacherEnv
+    renv = ReacherEnv(load_model(REACHER))
+    es, info = renv.reach_ik(renv.reset(torch.Generator(device="cuda"), 64))
+
+    import gymnasium                        # registers the port's id
+    from mujoco_rl_ur5_tpu_torch.env import gym_wrapper
+    env = gymnasium.make(gym_wrapper.ENV_ID, image_width=64,
+                         image_height=64)   # device="cuda" by default
+
+    # python -m mujoco_rl_ur5_tpu_torch.examples.example --budget-scale 0.05
+
 The package imports torch and numpy, never jax, flax, optax or orbax, and
 nothing of mujoco_rl_ur5_tpu.
 """
@@ -89,3 +109,4 @@ ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
                      "ur5_2finger_arm.xml")
 PILE = os.path.join(os.path.dirname(ASSET), "ur5_2finger_pile.xml")
 OBJECTS = os.path.join(os.path.dirname(ASSET), "ur5_2finger_objects.xml")
+REACHER = os.path.join(os.path.dirname(ASSET), "ur5_2finger_reacher.xml")

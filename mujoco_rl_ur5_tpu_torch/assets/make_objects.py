@@ -6,7 +6,9 @@ mesh finger_pad.stl (both beside this script).
 The scene is ur5_2finger_pile.xml (the 8-dof arm, the floor, the bin) with
 the reference pile's composition (40 free objects: 10 spheres, 10 boxes,
 10 cylinders, 10 capsules), mesh finger pads instead of the box fingers, a
-``top_down`` camera and a colour for every geom. Sizes, grid slots and
+``top_down`` camera, a ``side`` camera (the port's own pose, looking at
+the bin from +x; the reference's pose is not in the repository) and a
+colour for every geom. Sizes, grid slots and
 orientations are drawn once from ``numpy.random.default_rng(SEED)``; an
 orientation is drawn again while the object's bounding shape (a capsule
 for capsules and cylinders, a sphere otherwise) meets one placed before.
@@ -28,6 +30,8 @@ RGBA = {"floor": "0.55 0.55 0.5 1", "bin": "0.45 0.3 0.2 1",
         "sphere": "0.85 0.2 0.15 1", "box": "0.2 0.7 0.25 1",
         "cylinder": "0.2 0.35 0.85 1", "capsule": "0.9 0.8 0.15 1",
         "pad": "0.75 0.75 0.8 1"}
+# the side camera's view, down 0.55 m over 1.2 m to the bin: (cos, sin)
+SIDE_TILT = tuple(np.round(np.array([1.2, 0.55]) / np.hypot(1.2, 0.55), 4))
 HEADER = """<!--
   The object pile of the grasping env, for the contact step and the RGB-D
   observation: the 8-dof UR5 arm of ur5_2finger_pile.xml (copied
@@ -44,7 +48,10 @@ HEADER = """<!--
   make_objects.py, which writes this file. Objects take their inertia from
   their geoms at density 1000; free-joint damping 0.007. Contact settings
   are the reference pile scene's. Every geom has a colour: the bin, each
-  object family and the pads distinct.
+  object family and the pads distinct. A side camera at (1.2, -0.6, 1.45)
+  looks at the bin from +x, tilted down 24.6 degrees, for the grasp
+  captures: its pose is the port's own (the reference's is not in the
+  repository).
 -->
 """
 
@@ -162,7 +169,10 @@ def scene(objs) -> str:
                         '<geom name="floor" type="plane" size="2 2 0.1" '
                         f'rgba="{RGBA["floor"]}"/>\n    <camera '
                         'name="top_down" pos="0 -0.6 2.0" '
-                        'axisangle="2 2 2 0"/>')
+                        'axisangle="2 2 2 0"/>\n    <camera name="side" '
+                        'pos="1.2 -0.6 1.45" '
+                        f'xyaxes="0 1 0 {-SIDE_TILT[1]:g} 0 '
+                        f'{SIDE_TILT[0]:g}"/>')
     for wall in ("bin_floor", "bin_wall_px", "bin_wall_nx", "bin_wall_py",
                  "bin_wall_ny"):
         i = body.index(f'<geom name="{wall}"')

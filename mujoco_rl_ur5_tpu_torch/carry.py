@@ -15,12 +15,13 @@ compute the invweights in float32 with different sums). ``warm_from_arrays``
 carries the contact solver's warm start, a pair of arrays.
 
 ``state_from_arrays``, ``pid_params_from_arrays``, ``pid_state_from_arrays``,
-``ctrl_state_from_arrays``, ``env_state_from_arrays`` and
-``ilqr_from_arrays`` carry the JAX package's State, PIDParams, PIDState,
-CtrlState, EnvState and ILQRResult: each takes a dict of numpy arrays (nested
-dicts for the nested fields) or any object with those attributes, and keeps
-each array's dtype. The JAX EnvState's PRNG key has no counterpart (the
-port draws from a ``torch.Generator``) and is not read.
+``ctrl_state_from_arrays``, ``env_state_from_arrays``,
+``reacher_state_from_arrays`` and ``ilqr_from_arrays`` carry the JAX
+package's State, PIDParams, PIDState, CtrlState, EnvState, ReacherState
+and ILQRResult: each takes a dict of numpy arrays (nested dicts for the
+nested fields) or any object with those attributes, and keeps each
+array's dtype. The JAX EnvState's and ReacherState's PRNG keys have no
+counterpart (the port draws from a ``torch.Generator``) and are not read.
 
 ``agent_from_arrays`` carries the grasp Q-network's Flax trees (``params``
 and ``batch_stats`` as nested dicts of numpy arrays) to the port's
@@ -45,6 +46,7 @@ import torch
 from mujoco_rl_ur5_tpu_torch.control.controller import CtrlState
 from mujoco_rl_ur5_tpu_torch.control.pid import PIDParams, PIDState
 from mujoco_rl_ur5_tpu_torch.env.grasp_env import EnvState
+from mujoco_rl_ur5_tpu_torch.env.reacher import ReacherState
 from mujoco_rl_ur5_tpu_torch.learn.agent import COUNTERS, TrainState
 from mujoco_rl_ur5_tpu_torch.learn.replay import ReplayState
 from mujoco_rl_ur5_tpu_torch.mpc.ilqr import ILQRResult
@@ -127,6 +129,12 @@ def env_state_from_arrays(src, device="cpu") -> EnvState:
     return EnvState(sim=state_from_arrays(_field(src, "sim"), device),
                     ctl=ctrl_state_from_arrays(_field(src, "ctl"), device),
                     **_fields(src, ("rgb", "depth"), device))
+
+
+def reacher_state_from_arrays(src, device="cpu") -> ReacherState:
+    return ReacherState(sim=state_from_arrays(_field(src, "sim"), device),
+                        pid=pid_state_from_arrays(_field(src, "pid"), device),
+                        **_fields(src, ("setpoints", "target"), device))
 
 
 def ilqr_from_arrays(src, device="cpu") -> ILQRResult:

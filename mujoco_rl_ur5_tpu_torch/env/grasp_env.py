@@ -134,10 +134,13 @@ class GraspEnv:
 
     # -- reset ----------------------------------------------------------------
 
-    def reset(self, generator: torch.Generator, batch: int) -> EnvState:
+    def reset(self, generator: torch.Generator, batch: int,
+              rows: slice | None = None) -> EnvState:
         """``batch`` randomized piles, drawn from ``generator`` (on its
-        device) and settled."""
-        return self._settle(self._draw(generator, batch))
+        device) and settled; with ``rows``, all ``batch`` are drawn and only
+        those rows settled (a data-parallel rank's share)."""
+        qpos = self._draw(generator, batch)
+        return self._settle(qpos if rows is None else qpos[rows])
 
     def _draw(self, generator: torch.Generator, batch: int) -> torch.Tensor:
         """The home pose and a random drop of every free object: qpos

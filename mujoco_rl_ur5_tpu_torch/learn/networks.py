@@ -65,11 +65,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def batch_moments(self, xf: torch.Tensor):
+        """The training-mode moments: the per-channel mean and mean of
+        squares over the batch and the pixels."""
+        return xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
-            mean = xf.mean((0, 2, 3))
-            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, msq = self.batch_moments(xf)
+            var = (msq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

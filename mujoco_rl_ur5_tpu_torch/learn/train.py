@@ -51,11 +51,10 @@ class Trainer:
     default, raises without one); ``run()`` is the main loop."""
 
     def __init__(self, config: Config = Config(), mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): the data-parallel env over a device "
-                "mesh waits for the port of parallel/ (ROADMAP.md Queue 1, "
-                "parallel/)")
+        """``mesh`` (parallel.make_mesh) with ``batch_envs`` > 1 runs the
+        env's reset and step on this rank's share of the scenarios and
+        gathers the results, so that every rank holds the whole batch and
+        learns as one process would."""
         self.cfg = config
         self.device = resolve_device(device, "Trainer")
         e, s = config.env, config.solver
@@ -75,6 +74,17 @@ class Trainer:
             run_name=MetricsTracker.run_name(acfg, t.seed, t.description),
             rotations=acfg.rotations)
         self.B = t.batch_envs
+        self._dp = None
+        if mesh is not None and self.B > 1:
+            from mujoco_rl_ur5_tpu_torch.parallel.mesh import (
+                dp_env_reset, dp_env_rollout, gather_batch, shard_batch,
+            )
+
+            reset = dp_env_reset(self.env, mesh)
+            step = dp_env_rollout(self.env, mesh)
+            self._dp = (lambda gen, B: gather_batch(mesh, reset(gen, B)),
+                        lambda es, a: gather_batch(
+                            mesh, step(shard_batch(mesh, es), a)))
 
     # -- one episode -----------------------------------------------------------
 
@@ -82,15 +92,16 @@ class Trainer:
                     steps: int, verbose: bool = True):
         """One reset and ``steps`` env steps, every draw from ``generator``
         (on the device). Returns (ts, buf, rewards per step)."""
-        agent, env, B = self.agent, self.env, self.B
+        agent, B = self.agent, self.B
         hw = agent.cfg.height * agent.cfg.width
-        es = env.reset(generator, B)
+        reset, step = self._dp or (self.env.reset, self.env.step)
+        es = reset(generator, B)
         rewards_hist = []
         for _ in range(steps):
             obs = agent.transform_observation(es.rgb, es.depth, generator)
             flat, was_greedy = agent.epsilon_greedy(ts, obs, es.depth,
                                                     generator)
-            es, rewards, _, info = env.step(es, agent.transform_action(flat))
+            es, rewards, _, info = step(es, agent.transform_action(flat))
 
             # bank the transitions and count them (both batched)
             buf = agent.memory.push(buf, obs, flat, rewards)

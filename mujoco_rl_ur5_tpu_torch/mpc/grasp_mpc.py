@@ -12,7 +12,9 @@ knot is ``substeps`` physics steps. Two modes:
     for receding-horizon use.
 
 ``solve_batch`` / ``solve_batch_x`` and ``track_batch`` run B scenarios in
-lock-step through the fused kernels of mpc/cuda_ilqr.py. ``solve`` and
+lock-step through the fused kernels of mpc/cuda_ilqr.py (linearized by
+``lin_fd_fast`` at a power-of-two ``substeps``, by ``lin_fd`` over the
+full knot otherwise). ``solve`` and
 ``track`` are the per-instance solves on the generic optimizer of
 mpc/ilqr.py (autodiff Jacobians, no kernel).
 
@@ -85,6 +87,9 @@ class GraspMPC:
                              "use scene.reduce.load_arm_model or from_scene")
         self.H, self.substeps, self.iters, self.w = (
             horizon, substeps, iters, weights)
+        # one-substep differences composed by squaring need a power of
+        # two; any other count differences the full knot (lin_fd)
+        self.fast_lin = substeps & (substeps - 1) == 0
         self.parallel = parallel
         # a non-divisor falls back to the largest divisor of the horizon
         # below it, not to 1 (which would undo the memory cap)
@@ -370,7 +375,8 @@ class GraspMPC:
         total_cost, quad, term_quad, kernel_cost = self._reach_closures(targets)
         return ilqr_chain_batch(self.plan, self.substeps, total_cost, quad,
                                 term_quad, x0, self._hold_init(x0),
-                                kernel_cost, iters=self.iters)
+                                kernel_cost, iters=self.iters,
+                                fast_lin=self.fast_lin)
 
     def solve_batch(self, qpos, qvel, targets) -> ILQRResult:
         """Batched reach solves from full-scene states (qpos (B, nq_full),
@@ -434,4 +440,5 @@ class GraspMPC:
             self.plan, self.substeps, total_cost,
             lambda xs, us: self._track_quad(xs, us, refs),
             lambda xH: self._track_term_quad(xH, term_ref),
-            x0, u_init, (self._k_track, sref, tref), iters=self.iters)
+            x0, u_init, (self._k_track, sref, tref), iters=self.iters,
+            fast_lin=self.fast_lin)

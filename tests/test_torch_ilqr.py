@@ -12,7 +12,9 @@ against the JAX package on the CPU, inputs seeded with numpy.
 * ``ilqr`` on the double integrator and the pendulum of the JAX package's
   tests/test_mpc.py, with the assertions of those tests, and the cost within
   1e-3 relative of JAX ``ilqr``.
-* ``GraspMPC.dyn_step``, ``solve`` and ``track`` on the fixture against JAX
+* ``GraspMPC.dyn_step``, ``solve`` and ``track`` (``dyn_step`` and
+  ``track`` in tests/test_torch_ilqr_track.py, which runs beside this file
+  under ``--dist loadfile``) on the fixture against JAX
   (``use_pallas=False``, the same ``parallel``) at H=4, substeps=2, iters=2,
   ``w_ctrl=1``: cost at 1e-3 relative, controls and states at 1e-2
   absolute. Both sides take exact forward-mode Jacobians here, so they
@@ -257,15 +259,6 @@ def test_lin_chunks_falls_back_to_a_divisor(solvers):
     assert tmpc.lin_chunks == jmpc.lin_chunks == 2      # asked 3, H = 4
 
 
-def test_dyn_step_matches_jax(solvers):
-    jmpc, tmpc, rng, x0 = solvers
-    u = (0.3 * rng.standard_normal(7)).astype(np.float32)
-    got = tmpc.dyn_step(_t(x0), _t(u))
-    want = jmpc.dyn_step(jnp.asarray(x0), jnp.asarray(u))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
-                               rtol=1e-4)
-
-
 def test_solve_matches_jax(solvers):
     jmpc, tmpc, _, x0 = solvers
     target = np.array([0.05, -0.55, 1.05], np.float32)
@@ -285,19 +278,3 @@ def test_solve_matches_jax(solvers):
     e_hold = float((tmpc.ee_pos(x[:8]) - _t(target)).norm())
     e_solved = float((tmpc.ee_pos(qH) - _t(target)).norm())
     assert e_solved < e_hold
-
-
-def test_track_matches_jax_cold_and_warm(solvers):
-    jmpc, tmpc, rng, x0 = solvers
-    goal = x0[:8] + 0.01 * rng.standard_normal(8)
-    s = np.linspace(0.0, 1.0, H + 1)[:, None]
-    q_refs = (x0[None, :8] * (1 - s) + goal[None] * s).astype(np.float32)
-    jres = jmpc.track(jnp.asarray(x0), jnp.asarray(q_refs))
-    tres = tmpc.track(_t(x0), _t(q_refs))
-    _compare(jres, tres)
-    u_warm = np.concatenate([np.asarray(jres.us)[1:],
-                             np.asarray(jres.us)[-1:]])
-    jw = jmpc.track(jnp.asarray(x0), jnp.asarray(q_refs),
-                    u_init=jnp.asarray(u_warm))
-    tw = tmpc.track(_t(x0), _t(q_refs), u_init=_t(u_warm))
-    _compare(jw, tw)

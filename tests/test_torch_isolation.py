@@ -11,7 +11,10 @@ falls back to the CPU when CUDA is asked for.
   there is none raise (the default device included).
 * The subpackages export what the JAX package's export, where the port
   has them, each name the port's own object (``from
-  mujoco_rl_ur5_tpu_torch.physics import constraints, dynamics, fk``).
+  mujoco_rl_ur5_tpu_torch.physics import constraints, dynamics, fk``);
+  ``env`` and ``parallel`` every name of the JAX package's.
+* chip_smoke.py imports no gymnasium (the card's machine has none), and
+  the port's modules it drives import without it.
 * ``plan_from_arrays`` carries the JAX package's chain plan across: the port
   computes the same rollout on it as on the plan it loads itself.
 * The six narrowphase kernels (csrc/collide_*.cu) compile on the host with
@@ -81,7 +84,10 @@ def test_every_port_module_imports_without_jax():
               "ops.spatial", "ops.consts", "physics.kinematics",
               "physics.dynamics", "physics.collision",
               "physics.cuda_collide", "physics.constraints", "scene.mesh",
-              "render.camera", "render.raycast", "render.cuda_raycast"):
+              "render.camera", "render.raycast", "render.cuda_raycast",
+              "env.reacher", "env.gym_wrapper", "parallel.mesh",
+              "parallel.distributed", "examples.example",
+              "examples.example_agent"):
         assert "mujoco_rl_ur5_tpu_torch." + m in mods
     code = (
         "import sys\n"
@@ -259,7 +265,14 @@ EXPORTS = {
     | {n: "control.introspect" for n in ("show_model_info",
                                          "display_current_values",
                                          "joint_angle_plot")},
-    "env": {"EnvState": "env.grasp_env", "GraspEnv": "env.grasp_env"},
+    "env": {"EnvState": "env.grasp_env", "GraspEnv": "env.grasp_env",
+            "GrasperEnv": "env.gym_wrapper",
+            "register_envs": "env.gym_wrapper", "ReacherEnv": "env.reacher"},
+    "parallel": {n: "parallel.mesh" for n in (
+        "make_mesh", "shard_batch", "replicate", "dp_train_step",
+        "dp_env_rollout", "dp_env_reset", "tp_param_shardings",
+        "tp_place_train_state")}
+    | {"initialize_multihost": "parallel.distributed"},
     "learn": {n: "learn.networks" for n in (
         "MultidiscreteResnet", "multidiscrete_resnet", "resnet",
         "policy_resnet", "count_parameters")}
@@ -286,6 +299,42 @@ def test_learn_and_utils_export_the_jax_packages_names():
     assert learn.__all__ == jlearn.__all__
     assert utils.__all__ == [n.replace("jax_trace", "torch_trace")
                              for n in jutils.__all__]
+
+
+def test_env_and_parallel_export_the_jax_packages_names():
+    """env/ and parallel/ export every name of the JAX package's."""
+    import mujoco_rl_ur5_tpu.env as jenv
+    import mujoco_rl_ur5_tpu.parallel as jparallel
+    import mujoco_rl_ur5_tpu_torch.env as env
+    import mujoco_rl_ur5_tpu_torch.parallel as parallel
+
+    assert env.__all__ == jenv.__all__
+    assert parallel.__all__ == jparallel.__all__
+
+
+_GYM = re.compile(r"^\s*(import|from)\s+\S*(gymnasium|gym_wrapper|"
+                  r"example_agent)\b", re.M)
+
+
+def test_chip_smoke_needs_no_gymnasium():
+    """The card's machine has no gymnasium: chip_smoke.py imports neither
+    it nor a module of the port that does, and the modules it drives
+    import without it."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        hit = _GYM.search(f.read())
+    assert hit is None, hit.group(0)
+    code = (
+        "import sys\n"
+        "sys.modules['gymnasium'] = None\n"
+        "import mujoco_rl_ur5_tpu_torch.env as env\n"
+        "assert env.ReacherEnv and env.GraspEnv\n"
+        "for m in ('env.reacher', 'parallel', 'parallel.mesh',\n"
+        "          'parallel.distributed', 'examples.example',\n"
+        "          'learn.train', 'mpc.grasp_mpc'):\n"
+        "    __import__('mujoco_rl_ur5_tpu_torch.' + m)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 # the exports that are submodules (mpc's ``ilqr`` is the function, which

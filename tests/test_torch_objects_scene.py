@@ -6,7 +6,7 @@ Two scenes, each compiled by both packages from the same file:
 * the object pile (mujoco_rl_ur5_tpu_torch/assets/ur5_2finger_objects.xml):
   the arm with mesh finger pads (finger_pad.stl, scaled from mm), the bin,
   10 spheres, 10 boxes, 10 cylinders and 10 capsules, a ``top_down``
-  camera, ``visual/map``, a colour on every geom;
+  and a ``side`` camera, ``visual/map``, a colour on every geom;
 * a small scene written here: a free body whose inertia comes from a mesh
   (``inertiafromgeom``, the pad at another scale under a ``meshdir``), a
   texture and two materials (one with its own rgba, one taking the
@@ -127,13 +127,21 @@ def test_invweight0_matches_jax(scenes, scene):
 def test_object_pile_composition(scenes):
     """The reference pile's shape: nq 288, nv 248, 40 free objects of four
     families, mesh pads whose hull (24 vertices, 34 faces) widens the hull
-    tables past the cylinder prism's 18 faces, one top_down camera at
-    (0, -0.6, 2.0), and sphere-hull and capsule-hull pair groups."""
+    tables past the cylinder prism's 18 faces, the top_down camera at
+    (0, -0.6, 2.0) and the side camera at (1.2, -0.6, 1.45) looking along
+    -x, tilted down, and sphere-hull and capsule-hull pair groups."""
     m, _ = scenes["objects"]
     t = m.topo
-    assert (t.nq, t.nv, t.ncam, t.cam_names) == (288, 248, 1, ("top_down",))
+    assert (t.nq, t.nv, t.ncam, t.cam_names) == (288, 248, 2,
+                                                 ("top_down", "side"))
     np.testing.assert_allclose(m.cam_pos[0], [0.0, -0.6, 2.0])
     np.testing.assert_array_equal(m.cam_quat[0], [1.0, 0, 0, 0])
+    np.testing.assert_allclose(m.cam_pos[1], [1.2, -0.6, 1.45])
+    # the side camera looks along its -z: toward -x and down to the bin
+    w, x, y, z = np.asarray(m.cam_quat[1], np.float64)
+    view = -np.array([2 * (x * z + w * y), 2 * (y * z - w * x),
+                      1 - 2 * (x * x + y * y)])
+    np.testing.assert_allclose(view, [-0.9091, 0.0, -0.4167], atol=1e-4)
     assert (t.hull_maxv, t.hull_maxf) == (32, 34) and m.cam_fovy[0] == 45
     pad = t.geom_meshid[t.geom_id("left_finger")]
     assert pad == t.geom_meshid[t.geom_id("right_finger")]

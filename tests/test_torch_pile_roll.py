@@ -15,6 +15,7 @@ object height within 1 mm.)
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from mujoco_rl_ur5_tpu.physics import constraints as jcon
@@ -25,7 +26,7 @@ from mujoco_rl_ur5_tpu.scene.model import State as JState
 from mujoco_rl_ur5_tpu_torch import PILE
 from mujoco_rl_ur5_tpu_torch.carry import model_from_arrays
 from mujoco_rl_ur5_tpu_torch.physics import constraints, dynamics
-from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
+from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file, load_model
 from mujoco_rl_ur5_tpu_torch.scene.mjcf import JNT_FREE
 from mujoco_rl_ur5_tpu_torch.scene.model import ARRAY_FIELDS, State
 
@@ -69,3 +70,72 @@ def test_dropped_pile_rolls_like_jax():
     vmax = np.abs(np.asarray(js.qvel)[:, 8:]).max()
     assert vmax > 1.0                              # the objects have landed
     assert abs(float(s.qvel[:, 8:].abs().max()) - vmax) <= 1e-3 * vmax
+
+
+# -- the port's roll on its own: a repeat, and scenarios rolled alone -------
+
+SHORT, LOWER = 40, 0.045
+
+
+def _short_roll(m, qpos):
+    """SHORT warm-started contact steps of the port from ``qpos`` at rest."""
+    t = m.topo
+    n = qpos.shape[0]
+    s = State(torch.from_numpy(qpos), torch.zeros(n, t.nv),
+              torch.zeros(n, t.nu), torch.zeros(n))
+    w = constraints.init_warm(m, s)
+    for _ in range(SHORT):
+        s, w = dynamics.step_warm(m, s, w, 128, ITERS)
+    return s
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """The port's small CPU ops run faster on one thread, and leave the
+    other workers' cores alone (the JAX comparison above keeps its
+    threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def short_roll(one_thread):
+    """The pile's grid with seeded orientations, lowered by LOWER so
+    that its lowest layer lands within the first SHORT steps, in 3
+    scenarios; their roll."""
+    m = load_model(PILE, device="cpu")
+    t = m.topo
+    rng = np.random.default_rng(6)
+    q = np.tile(m.qpos0.numpy().astype(np.float64), (3, 1))
+    free = np.nonzero(t.jnt_type == JNT_FREE)[0]
+    for j in free:
+        qa = t.jnt_qposadr[j]
+        q[:, qa + 2] -= LOWER
+        quat = rng.normal(size=(3, 4))
+        q[:, qa + 3: qa + 7] = quat / np.linalg.norm(quat, axis=1,
+                                                     keepdims=True)
+    qpos = q.astype(np.float32)
+    return m, qpos, _short_roll(m, qpos)
+
+
+def test_pile_roll_repeats_to_the_bit(short_roll):
+    m, qpos, s = short_roll
+    again = _short_roll(m, qpos)
+    assert torch.equal(again.qpos, s.qpos) and torch.equal(again.qvel,
+                                                           s.qvel)
+
+
+def test_pile_roll_scenarios_roll_alone(short_roll):
+    """Scenario 1 rolled as a batch of its own equals its row of the batch
+    to the bit (the premise of scenario-parallel envs), through the first
+    impacts: some object's fall has been stopped."""
+    m, qpos, s = short_roll
+    t = m.topo
+    alone = _short_roll(m, qpos[1:2])
+    assert torch.equal(alone.qpos, s.qpos[1:2])
+    assert torch.equal(alone.qvel, s.qvel[1:2])
+    vz = [t.jnt_dofadr[j] + 2 for j in np.nonzero(t.jnt_type == JNT_FREE)[0]]
+    free_fall = 9.81 * SHORT * t.timestep
+    assert float(s.qvel[:, vz].max()) > -0.5 * free_fall

@@ -20,7 +20,9 @@ through the contact scene, the holds, the phase script and its masks.
 Objects are parked 40 m away except where a scenario aims into the pile.
 
 * ``execute`` of a plan carried across (B=2, H=4, substeps=4, seeded
-  controls, knot states and feedback gains): qpos and qvel within 1e-4.
+  controls, knot states and feedback gains): qpos and qvel within 1e-4
+  (in tests/test_torch_policy_execute.py, which runs beside this file
+  under ``--dist loadfile``).
 * ``hold`` (50 steps, the gripper closing or opening), ``move_to`` (B=4:
   targets 1 cm from each grasp centre with the wrist turned 0.05 rad, one
   out of reach that takes its fallback) and ``pick`` (B=4,
@@ -44,7 +46,7 @@ Objects are parked 40 m away except where a scenario aims into the pile.
   port's own planner on the same inputs: finite states, boolean flags,
   rewards in {0, 1}, (a) untouched.
 * Without a policy ``step_mpc`` raises; a GraspMPC on another device than
-  the policy's raises.
+  the policy's raises (in tests/test_torch_policy_execute.py).
 """
 
 import jax
@@ -61,18 +63,14 @@ from mujoco_rl_ur5_tpu.env.grasp_env import EnvState as JEnvState
 from mujoco_rl_ur5_tpu.env.grasp_env import GraspEnv as JGraspEnv
 from mujoco_rl_ur5_tpu.mpc.grasp_mpc import GraspMPC as JGraspMPC
 from mujoco_rl_ur5_tpu.mpc.grasp_mpc import MPCWeights as JWeights
-from mujoco_rl_ur5_tpu.mpc.ilqr import ILQRResult as JResult
-from mujoco_rl_ur5_tpu.mpc.lqr import Gains as JGains
-from mujoco_rl_ur5_tpu.mpc.policy import MPCGraspPolicy as JPolicy
 from mujoco_rl_ur5_tpu.scene.compile import compile_spec as jax_compile_spec
 from mujoco_rl_ur5_tpu.scene.mjcf import parse_mjcf as jax_parse_mjcf
 from mujoco_rl_ur5_tpu.scene.model import State as JState
 from mujoco_rl_ur5_tpu.scene.reduce import load_arm_model as jax_load_arm
 from mujoco_rl_ur5_tpu_torch import OBJECTS, carry
 from mujoco_rl_ur5_tpu_torch.control.ik import ik_solve
-from mujoco_rl_ur5_tpu_torch.control.pid import pid_init
 from mujoco_rl_ur5_tpu_torch.env import GraspEnv
-from mujoco_rl_ur5_tpu_torch.mpc import GraspMPC, MPCGraspPolicy, MPCWeights
+from mujoco_rl_ur5_tpu_torch.mpc import GraspMPC, MPCWeights
 from mujoco_rl_ur5_tpu_torch.mpc.policy import GRIP_CLOSE, GRIP_OPEN
 from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
 from mujoco_rl_ur5_tpu_torch.scene.mjcf import JNT_FREE
@@ -153,43 +151,6 @@ def _jenv_state(es):
 def _close(got, want, tol, what):
     err = np.abs(np.asarray(got) - np.asarray(want)).max()
     assert err <= tol, (what, err)
-
-
-def test_execute_matches_jax(scene):
-    jm, host, m, jenv, env = scene
-    B, Hx, Sx = 2, 4, 4
-    jpol = JPolicy(jm, JGraspMPC(jm, arm_model=jax_load_arm(OBJECTS),
-                                 horizon=Hx, substeps=Sx, use_pallas=False),
-                   ncon=96, iterations=15)
-    mpc = GraspMPC.from_scene(OBJECTS, horizon=Hx, substeps=Sx,
-                              device="cpu")
-    pol = MPCGraspPolicy(m, mpc, ncon=96, iterations=15, device="cpu")
-    rng = np.random.default_rng(5)
-    q = _parked(m, B, 1)
-    st = env._settle(q).sim
-    x0 = mpc.x_from_state(st.qpos, st.qvel)
-    nx, nu = mpc.nx, mpc.nu
-    us = mpc.hold_ctrl(x0[:, :8])[:, None].numpy() + 0.2 * rng.standard_normal(
-        (B, Hx, nu))
-    xs = x0[:, None].numpy() + 0.02 * rng.standard_normal((B, Hx + 1, nx))
-    f32 = np.float32
-    jres = JResult(xs=jnp.asarray(xs, f32), us=jnp.asarray(us, f32),
-                   cost=jnp.zeros(B),
-                   gains=JGains(K=jnp.asarray(0.5 * rng.standard_normal(
-                       (B, Hx, nu, nx)), f32), d=jnp.zeros((B, Hx, nu)),
-                       S=jnp.zeros((B, Hx + 1, nx, nx)),
-                       s=jnp.zeros((B, Hx + 1, nx))))
-    grip = np.array([GRIP_OPEN, GRIP_CLOSE], f32)
-    pid = pid_init(7, B)
-    jst, jps = jax.jit(jax.vmap(jpol.execute))(
-        _jstate(st), jpid_init(7, (B,)), jres, jnp.asarray(grip))
-    tst, tps = pol.execute(st, pid, carry.ilqr_from_arrays(jres),
-                           torch.from_numpy(grip))
-    _close(tst.qpos, jst.qpos, 1e-4, "qpos")
-    _close(tst.qvel, jst.qvel, 1e-4, "qvel")
-    _close(tps.integral, jps.integral, 1e-4, "pid")
-    # the plan moved the arm
-    assert (tst.qpos[:, :6] - st.qpos[:, :6]).abs().max() > 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -414,13 +375,3 @@ def test_step_mpc_matches_jax(scene, jax_moves, monkeypatch):
     assert set(reward3.tolist()) <= {0.0, 1.0}
     np.testing.assert_array_equal(es3.sim.qpos[0].numpy(),
                                   es.sim.qpos[0].numpy())
-
-
-def test_policy_errors(scene):
-    jm, host, m, jenv, env = scene
-    plain = GraspEnv(m, device="cpu", **KW)
-    es = plain._settle(_parked(m, 1, 0))
-    with pytest.raises(ValueError, match="step_mpc"):
-        plain.step_mpc(es, torch.tensor([[0, 0]]))
-    with pytest.raises(RuntimeError, match="cuda"):
-        MPCGraspPolicy(m, env.policy.mpc, device="cuda")

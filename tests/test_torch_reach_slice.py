@@ -23,6 +23,11 @@ conditioning.
 
 Tolerances: both solvers linearize by forward differences with eps=1e-3 in
 f32. Costs agree to 1e-3 relative; controls and states to 1e-2 absolute.
+
+The port's solve on its own, on its own plan: a repeat equal to the bit,
+a sub-batch of scenarios equal to the same rows of the whole batch to the
+limits above, and the costs non-increasing over one to four iterations
+(seconds each).
 """
 
 import numpy as np
@@ -107,3 +112,75 @@ def test_solve_batch_x_matches_jax_cold(solvers):
     for got, want in zip((full.xs, full.us, full.cost, *full.gains),
                          (tres.xs, tres.us, tres.cost, *tres.gains)):
         assert torch.equal(got, want)
+
+
+# -- the port's solve_batch_x on its own (its own plan, no JAX program) -----
+
+
+def _reach_problem():
+    rng = np.random.default_rng(0)
+    x0 = np.concatenate([HOME + 0.05 * rng.standard_normal((B, 8)),
+                         0.05 * rng.standard_normal((B, 8))],
+                        -1).astype(np.float32)
+    targets = (np.array([0.0, -0.6, 1.0])
+               + 0.1 * rng.uniform(-1, 1, (B, 3))).astype(np.float32)
+    return torch.from_numpy(x0), torch.from_numpy(targets)
+
+
+def _port_mpc(iters=ITERS):
+    return GraspMPC.from_scene(ASSET, device="cpu", horizon=H,
+                               substeps=SUBSTEPS, iters=iters,
+                               weights=MPCWeights(w_ctrl=1.0))
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """The port's small CPU ops run faster on one thread, and leave the
+    other workers' cores alone (the JAX comparison above keeps its
+    threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def port_reach(one_thread):
+    mpc = _port_mpc()
+    x0, targets = _reach_problem()
+    return mpc, x0, targets, mpc.solve_batch_x(x0, targets)
+
+
+def _outputs(res):
+    return (res.xs, res.us, res.cost, *res.gains)
+
+
+def test_solve_batch_x_repeats_to_the_bit(port_reach):
+    mpc, x0, targets, res = port_reach
+    again = mpc.solve_batch_x(x0, targets)
+    assert all(torch.equal(a, b)
+               for a, b in zip(_outputs(res), _outputs(again)))
+
+
+def test_solve_batch_x_rows_solve_alone(port_reach):
+    """Scenarios 1-2 as a batch of their own give the whole batch's rows,
+    to the limits of the JAX comparison (the forward differences turn the
+    sub-batch's other roundoff into differences of that size)."""
+    mpc, x0, targets, res = port_reach
+    part = mpc.solve_batch_x(x0[1:3], targets[1:3])
+    np.testing.assert_allclose(part.cost.numpy(), res.cost[1:3].numpy(),
+                               rtol=1e-3)
+    np.testing.assert_allclose(part.us.numpy(), res.us[1:3].numpy(),
+                               atol=1e-2)
+    np.testing.assert_allclose(part.xs.numpy(), res.xs[1:3].numpy(),
+                               atol=1e-2)
+
+
+def test_solve_batch_x_cost_falls_with_iterations(port_reach):
+    """Each iteration's line search keeps the best candidate only where it
+    lowers the cost: one to four iterations end on non-increasing costs."""
+    x0, targets = port_reach[1:3]
+    costs = [_port_mpc(n).solve_batch_x(x0, targets).cost
+             for n in (1, 2, 3, 4)]
+    for a, b in zip(costs, costs[1:]):
+        assert bool((b <= a).all()), (a, b)

@@ -17,10 +17,16 @@ moves the cost by 4e-7 relative, the controls by 2e-3 and the states by
 
 Tolerances: both solvers linearize by forward differences with eps=1e-3 in
 f32. Costs agree to 1e-3 relative; controls and states to 1e-2 absolute.
+
+The port's warm re-solve on its own, on its own plan: a repeat equal to
+the bit, a sub-batch of scenarios equal to the same rows of the whole
+batch to the limits above, and the costs non-increasing from the warm
+plan's own over one to three iterations (seconds each).
 """
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from mujoco_rl_ur5_tpu.mpc.grasp_mpc import GraspMPC as JaxGraspMPC
@@ -81,3 +87,70 @@ def test_warm_reach_resolve_matches_jax():
     # the re-solve does not end above its start
     start = total_cost(rollout_open(tmpc.plan, SUBSTEPS, tx0, u_warm), u_warm)
     assert bool((tw.cost <= start).all())
+
+
+# -- the port's warm re-solve on its own (its own plan, no JAX program) -----
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """The port's small CPU ops run faster on one thread, and leave the
+    other workers' cores alone (the JAX comparison above keeps its
+    threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _port_warm(iters=ITERS, rows=slice(None)):
+    """The port's warm re-solve of ``rows`` of the problem from its own
+    cold solution shifted by one knot: (result, start cost)."""
+    tmpc = GraspMPC.from_scene(ASSET, device="cpu", horizon=H,
+                               substeps=SUBSTEPS, iters=ITERS,
+                               weights=MPCWeights(w_ctrl=1.0))
+    rng = np.random.default_rng(0)
+    x0 = torch.from_numpy(np.concatenate(
+        [HOME + 0.05 * rng.standard_normal((B, 8)),
+         0.05 * rng.standard_normal((B, 8))], -1).astype(np.float32))
+    targets = torch.from_numpy((np.array([0.0, -0.6, 1.0])
+                                + 0.1 * rng.uniform(-1, 1, (B, 3))
+                                ).astype(np.float32))
+    cold = tmpc.solve_batch_x(x0, targets)
+    u_warm = torch.cat([cold.us[:, 1:], cold.us[:, -1:]], 1)[rows]
+    x0, targets = x0[rows], targets[rows]
+    total_cost, quad, term_quad, kernel_cost = tmpc._reach_closures(targets)
+    res = ilqr_chain_batch(tmpc.plan, tmpc.substeps, total_cost, quad,
+                           term_quad, x0, u_warm.contiguous(), kernel_cost,
+                           iters=iters)
+    start = total_cost(rollout_open(tmpc.plan, SUBSTEPS, x0, u_warm),
+                       u_warm)
+    return res, start
+
+
+def test_warm_resolve_repeats_to_the_bit(one_thread):
+    (a, _), (b, _) = _port_warm(), _port_warm()
+    assert all(torch.equal(x, y) for x, y in zip(
+        (a.xs, a.us, a.cost, *a.gains), (b.xs, b.us, b.cost, *b.gains)))
+
+
+def test_warm_resolve_rows_solve_alone(one_thread):
+    """Scenarios 1-2 re-solved as a batch of their own (from the same warm
+    plan) give the whole batch's rows, to the limits of the JAX
+    comparison."""
+    (full, _), (part, _) = _port_warm(), _port_warm(rows=slice(1, 3))
+    np.testing.assert_allclose(part.cost.numpy(), full.cost[1:3].numpy(),
+                               rtol=1e-3)
+    np.testing.assert_allclose(part.us.numpy(), full.us[1:3].numpy(),
+                               atol=1e-2)
+    np.testing.assert_allclose(part.xs.numpy(), full.xs[1:3].numpy(),
+                               atol=1e-2)
+
+
+def test_warm_resolve_cost_falls_with_iterations(one_thread):
+    """From the warm plan's own cost, one to three iterations end on
+    non-increasing costs."""
+    runs = [_port_warm(iters=n) for n in (1, 2, 3)]
+    costs = [runs[0][1]] + [res.cost for res, _ in runs]
+    for a, b in zip(costs, costs[1:]):
+        assert bool((b <= a).all()), (a, b)

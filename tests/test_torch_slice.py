@@ -18,6 +18,11 @@ in f32, which turns last-ulp differences of the dynamics into ~1e-2
 differences of Jacobian entries of size ~30. The solved costs agree to
 1e-3 relative; controls and states to 1e-2 absolute (controls span
 +-1.5, and their measured ulp-noise sensitivity is 4e-3).
+
+The port's solve on its own, on its own plan: a repeat equal to the bit,
+the default start equal to the explicit gravity hold to the bit, and a
+sub-batch of scenarios equal to the same rows of the whole batch to the
+limits above (seconds each).
 """
 
 import numpy as np
@@ -99,3 +104,61 @@ def test_track_batch_matches_jax_cold_and_warm(solvers):
     tw = tmpc.track_batch(torch.from_numpy(x0), torch.from_numpy(q_refs),
                           u_init=torch.from_numpy(u_warm))
     _compare(jw, tw)
+
+
+# -- the port's track_batch on its own (its own plan, no JAX program) -------
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """The port's small CPU ops run faster on one thread, and leave the
+    other workers' cores alone (the JAX comparison above keeps its
+    threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def port_track(one_thread):
+    """The port's tracking solver and the first problem, with its whole-
+    batch solve."""
+    mpc = GraspMPC.from_scene(ASSET, device="cpu", horizon=H,
+                              substeps=SUBSTEPS, iters=ITERS,
+                              weights=MPCWeights(w_ctrl=1.0))
+    x0, q_refs = (torch.from_numpy(a) for a in _problem(0))
+    return mpc, x0, q_refs, mpc.track_batch(x0, q_refs)
+
+
+def _outputs(res):
+    return (res.xs, res.us, res.cost, *res.gains)
+
+
+def test_track_batch_repeats_to_the_bit(port_track):
+    mpc, x0, q_refs, res = port_track
+    again = mpc.track_batch(x0, q_refs)
+    assert all(torch.equal(a, b)
+               for a, b in zip(_outputs(res), _outputs(again)))
+
+
+def test_track_batch_default_start_is_the_gravity_hold(port_track):
+    mpc, x0, q_refs, res = port_track
+    held = mpc.track_batch(x0, q_refs, u_init=mpc._hold_init(x0))
+    assert all(torch.equal(a, b)
+               for a, b in zip(_outputs(res), _outputs(held)))
+
+
+def test_track_batch_rows_solve_alone(port_track):
+    """Scenarios 1-2 solved as a batch of their own give the whole batch's
+    rows (the premise of a sharded solve), to the limits the JAX
+    comparison states: the forward differences turn the sub-batch's other
+    roundoff into differences of that size."""
+    mpc, x0, q_refs, res = port_track
+    part = mpc.track_batch(x0[1:3], q_refs[1:3])
+    np.testing.assert_allclose(part.cost.numpy(), res.cost[1:3].numpy(),
+                               rtol=1e-3)
+    np.testing.assert_allclose(part.us.numpy(), res.us[1:3].numpy(),
+                               atol=1e-2)
+    np.testing.assert_allclose(part.xs.numpy(), res.xs[1:3].numpy(),
+                               atol=1e-2)

@@ -191,8 +191,3 @@ def test_checkpoint_resumes_the_run(run):
         assert torch.equal(v, w), n
     for f in ("states", "actions", "rewards"):
         assert torch.equal(getattr(buf2, f), getattr(buf, f))
-
-
-def test_trainer_mesh_waits_for_parallel(run):
-    with pytest.raises(NotImplementedError, match="parallel"):
-        Trainer(run["cfg"], mesh=object(), device="cpu")
