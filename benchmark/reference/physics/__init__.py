@@ -1,0 +1,1 @@
+"""Frozen plain reference: see the header of each module."""
