@@ -38,6 +38,10 @@ tensor-parallel layer, and what they stand on:
             sharding, the data-parallel learner and env steps, the
             tensor-parallel placement, process-group start-up
   examples/ the controller walkthrough and the random gymnasium agent
+  trace.py  spans and counters at the layers' boundaries (MPC solve and
+            iLQR phases, chain kernels, step, FK, collide, contact
+            solver, render, ray cast), recorded inside
+            ``trace.recording()`` and off otherwise
   csrc/     the kernels' CUDA sources, built by _build.py with nvcc
   assets/   ur5_2finger_arm.xml (the 8-dof arm scene),
             ur5_2finger_pile.xml (the arm, a bin and 40 free boxes and

@@ -55,6 +55,7 @@ from mujoco_rl_ur5_tpu_torch.physics.chain import ChainPlan
 from mujoco_rl_ur5_tpu_torch.physics.cuda_chain import (
     _NALPHA, lin_fd, lin_fd_fast, rollout_closed, rollout_open,
 )
+from mujoco_rl_ur5_tpu_torch.trace import count, span, spanned
 
 ALPHAS = (1.0, 0.6, 0.3, 0.1, 0.03)   # default line-search steps
 REG = 1e-6                            # default Levenberg-Marquardt floor
@@ -98,6 +99,7 @@ def knot_total_cost(cost_fn: Callable, term_cost_fn: Callable, refs,
                            + term(xs[:, -1], term_ref))
 
 
+@spanned("ilqr.solve")
 def ilqr_chain_batch(
     plan: ChainPlan,
     substeps: int,
@@ -187,16 +189,22 @@ def ilqr_chain_batch(
     rg = torch.full((B,), reg, dtype=x0.dtype, device=x0.device)
     rows = torch.arange(B, device=x0.device)
     for _ in range(iters):
-        gains = expand_and_backward(xs, us, rg)
-        xs_c, us_c, costs = line_search(xs, us, gains)
-        best = torch.argmin(costs, dim=1)      # first index on ties
-        bcost = costs[rows, best]
-        improved = (bcost < cost) & torch.isfinite(costs).all(1)
-        xs = torch.where(improved[:, None, None], xs_c[rows, best], xs)
-        us = torch.where(improved[:, None, None], us_c[rows, best], us)
-        cost = torch.where(improved, bcost, cost)
-        # per-scenario Levenberg-Marquardt schedule
-        rg = torch.where(improved, torch.clamp_min(rg * 0.5, reg),
-                         torch.clamp_max(rg * 10.0, 1e3))
-    gains = expand_and_backward(xs, us, torch.full_like(rg, reg))
+        with span("ilqr.expand"):
+            gains = expand_and_backward(xs, us, rg)
+        with span("ilqr.line_search"):
+            xs_c, us_c, costs = line_search(xs, us, gains)
+        with span("ilqr.accept"):
+            best = torch.argmin(costs, dim=1)      # first index on ties
+            bcost = costs[rows, best]
+            improved = (bcost < cost) & torch.isfinite(costs).all(1)
+            xs = torch.where(improved[:, None, None], xs_c[rows, best], xs)
+            us = torch.where(improved[:, None, None], us_c[rows, best], us)
+            cost = torch.where(improved, bcost, cost)
+            # per-scenario Levenberg-Marquardt schedule
+            rg = torch.where(improved, torch.clamp_min(rg * 0.5, reg),
+                             torch.clamp_max(rg * 10.0, 1e3))
+            count("ilqr.accepted", improved)
+            count("ilqr.tried", B)
+    with span("ilqr.expand"):
+        gains = expand_and_backward(xs, us, torch.full_like(rg, reg))
     return ILQRResult(xs=xs, us=us, cost=cost, gains=gains)

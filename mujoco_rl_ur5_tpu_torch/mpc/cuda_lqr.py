@@ -20,6 +20,7 @@ import torch
 from mujoco_rl_ur5_tpu_torch import _build
 from mujoco_rl_ur5_tpu_torch.mpc.lqr import LQR, Gains, backward_sequential
 from mujoco_rl_ur5_tpu_torch.physics.cuda_chain import _route, _stream
+from mujoco_rl_ur5_tpu_torch.trace import spanned
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SOURCE = _build.KernelSource("lqr_backward", "riccati_backward",
@@ -56,6 +57,7 @@ def check_inputs(F, L, X, q, U, r, XH, qH, reg) -> tuple:
     return B, H
 
 
+@spanned("chain.backward")
 def backward(F: torch.Tensor, L: torch.Tensor, X: torch.Tensor,
              q: torch.Tensor, U: torch.Tensor, r: torch.Tensor,
              XH: torch.Tensor, qH: torch.Tensor, reg: torch.Tensor) -> Gains:

@@ -47,6 +47,7 @@ from mujoco_rl_ur5_tpu_torch.scene.compile import compile_file
 from mujoco_rl_ur5_tpu_torch.scene.mjcf import JNT_HINGE
 from mujoco_rl_ur5_tpu_torch.scene.model import Model, resolve_device
 from mujoco_rl_ur5_tpu_torch.scene.reduce import load_arm_model
+from mujoco_rl_ur5_tpu_torch.trace import spanned
 
 
 # gripper grasp-center offset from ee_link
@@ -367,6 +368,7 @@ class GraspMPC:
                 lambda xH: self._reach_term_quad(xH, targets),
                 (self._k_reach, None, targets))
 
+    @spanned("mpc.solve")
     def solve_batch_x(self, x0, targets) -> ILQRResult:
         """Batched reach solves from MPC states x0 (B, nx) to world
         grasp-center targets (B, 3), from the gravity hold."""
@@ -416,6 +418,7 @@ class GraspMPC:
                     lin_chunks=self.lin_chunks, quad_fn=self._track_quad,
                     term_quad_fn=self._track_term_quad)
 
+    @spanned("mpc.solve")
     def track_batch(self, x0, q_refs, qd_refs=None,
                     u_init=None) -> ILQRResult:
         """Batched tracking solves: x0 (B, nx), q_refs (B, H+1, nq),

@@ -36,6 +36,7 @@ from mujoco_rl_ur5_tpu_torch.physics import collision, cuda_collide
 from mujoco_rl_ur5_tpu_torch.physics.collision import _smallest
 from mujoco_rl_ur5_tpu_torch.physics.kinematics import Kin, geom_poses
 from mujoco_rl_ur5_tpu_torch.scene.model import Model, State
+from mujoco_rl_ur5_tpu_torch.trace import count, spanned
 
 BROADPHASE_CAP = 64   # max pairs per type group fed to the narrowphase
 FACET_AXIS = np.repeat(np.arange(5), 2)   # friction axis per facet slot
@@ -103,6 +104,7 @@ def pair_groups(model: Model, cpos: torch.Tensor):
     return out
 
 
+@spanned("collide", device=True)
 def collide(model: Model, kin: Kin):
     """Every narrowphase group -> flat candidates: (pos (B, ncand, 3),
     normal (B, ncand, 3), dist (B, ncand), pair (B, ncand) int64, each
@@ -433,6 +435,7 @@ def _assemble(model: Model, state: State, kin: Kin, minv: torch.Tensor,
     return sysd
 
 
+@spanned("constraints", device=True)
 def constraint_forces(model: Model, state: State, kin: Kin,
                       minv: torch.Tensor, qacc_smooth: torch.Tensor,
                       ncon: int, iterations: int, warm=None):
@@ -444,6 +447,8 @@ def constraint_forces(model: Model, state: State, kin: Kin,
     sysd = _assemble(model, state, kin, minv, qacc_smooth, ncon)
     con, rowmask = sysd.con, sysd.rowmask
     B, K = con.dist.shape
+    count("constraints.live_rows", rowmask)
+    count("constraints.rows", rowmask.numel())
     scal = sysd.srows is not None
     S = sysd.srows[0].shape[1] if scal else 0
     act_s = sysd.srows[3] if scal else None

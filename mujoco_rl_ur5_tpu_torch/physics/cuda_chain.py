@@ -52,6 +52,7 @@ import torch
 
 from mujoco_rl_ur5_tpu_torch import _build
 from mujoco_rl_ur5_tpu_torch.physics.chain import ChainPlan
+from mujoco_rl_ur5_tpu_torch.trace import spanned
 
 EPS = 1e-3          # forward-difference step of lin_fd (rad, rad/s, ctrl)
 _FD_CHUNK = 1 << 15  # instances per pass of lin_fd_plain (bounds its memory)
@@ -1000,6 +1001,7 @@ def check_open_inputs(plan: ChainPlan, x0, us) -> tuple:
     return B, H
 
 
+@spanned("chain.rollout_open")
 def rollout_open(plan: ChainPlan, substeps: int, x0: torch.Tensor,
                  us: torch.Tensor) -> torch.Tensor:
     """Open-loop rollout: x0 (B, nx), us (B, H, nu) -> xs (B, H+1, nx).
@@ -1070,6 +1072,7 @@ def _lin_launch(plan: ChainPlan, xs: torch.Tensor, us: torch.Tensor,
     return F, L
 
 
+@spanned("chain.lin_fd")
 def lin_fd(plan: ChainPlan, substeps: int, xs: torch.Tensor,
            us: torch.Tensor):
     """Forward-difference knot Jacobians over ``substeps`` substeps (step
@@ -1102,6 +1105,7 @@ def lin_fd_fast_plain(plan: ChainPlan, substeps: int, xs: torch.Tensor,
     return compose_substeps(*lin_fd_plain(plan, 1, xs, us), substeps)
 
 
+@spanned("chain.lin_fd")
 def lin_fd_fast(plan: ChainPlan, substeps: int, xs: torch.Tensor,
                 us: torch.Tensor):
     """Knot Jacobians from a one-substep FD and a composition by repeated
@@ -1190,6 +1194,7 @@ def check_closed_inputs(plan: ChainPlan, x0, xbar, ubar, K, d, alphas,
     return B, H, A, R, RT
 
 
+@spanned("chain.rollout_closed")
 def rollout_closed(plan: ChainPlan, substeps: int, x0: torch.Tensor,
                    xbar: torch.Tensor, ubar: torch.Tensor, K: torch.Tensor,
                    d: torch.Tensor, alphas: tuple, cost=None,
@@ -1272,6 +1277,7 @@ def check_quad_inputs(plan: ChainPlan, xs, targets) -> tuple:
     return B, H
 
 
+@spanned("chain.ee_quad_gn")
 def ee_quad_gn(plan: ChainPlan, slot: int, off, w_ee: float, w_orient: float,
                w_posture: float, w_vel: float, home, xs: torch.Tensor,
                targets: torch.Tensor):

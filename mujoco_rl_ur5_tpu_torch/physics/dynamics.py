@@ -37,6 +37,7 @@ from mujoco_rl_ur5_tpu_torch.scene.mjcf import (
     JNT_BALL, JNT_FREE, JNT_HINGE, JNT_SLIDE,
 )
 from mujoco_rl_ur5_tpu_torch.scene.model import Model, State
+from mujoco_rl_ur5_tpu_torch.trace import spanned
 
 # -- inertia pipeline -----------------------------------------------------------
 
@@ -346,6 +347,7 @@ def step(model: Model, state: State, ncon: int = 0,
     return step_warm(model, state, None, ncon=ncon, iterations=iterations)[0]
 
 
+@spanned("step")
 def step_warm(model: Model, state: State, warm, ncon: int = 0,
               iterations: int = 30):
     """One step with the solver warm start; returns (State, warm')."""

@@ -26,6 +26,7 @@ from mujoco_rl_ur5_tpu_torch.scene.mjcf import (
     JNT_BALL, JNT_FREE, JNT_HINGE, JNT_SLIDE,
 )
 from mujoco_rl_ur5_tpu_torch.scene.model import Model
+from mujoco_rl_ur5_tpu_torch.trace import spanned
 
 
 @dataclass
@@ -50,6 +51,7 @@ def _gather_q(qpos, qadr, n, nq, dev):
     return qpos[..., ix(idx, dev)]
 
 
+@spanned("fk")
 def fk(model: Model, qpos: torch.Tensor) -> Kin:
     t = model.topo
     dev = qpos.device

@@ -24,6 +24,7 @@ import torch
 from mujoco_rl_ur5_tpu_torch import _build
 from mujoco_rl_ur5_tpu_torch.physics.cuda_chain import _route, _stream
 from mujoco_rl_ur5_tpu_torch.render import raycast
+from mujoco_rl_ur5_tpu_torch.trace import spanned
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # par, code, faces, dirs, planes, radius, out_s, out_gid, out_n, tile_count,
@@ -45,6 +46,7 @@ def survivor_lists(keep: torch.Tensor):
     return keep.sum(-1, dtype=torch.int32), torch.where(ids < G, ids, -1)
 
 
+@spanned("render.cast")
 def cast_rays(par, code, faces, dirs, cull=None, survivors=False):
     """The z-buffer cast of every frame: see ``raycast.cast_plain``. The
     kernel needs ``cull``; ``survivors=True`` also returns each tile's

@@ -45,6 +45,7 @@ from mujoco_rl_ur5_tpu_torch.scene.mjcf import (
     GEOM_BOX, GEOM_CAPSULE, GEOM_CYLINDER, GEOM_MESH, GEOM_PLANE, GEOM_SPHERE,
 )
 from mujoco_rl_ur5_tpu_torch.scene.model import Model
+from mujoco_rl_ur5_tpu_torch.trace import spanned
 
 BIG = 1e10
 EPS = 1e-12
@@ -424,6 +425,7 @@ def geom_hits_plain(par, code, faces, dirs):
 # -- images ----------------------------------------------------------------------
 
 
+@spanned("render")
 def render_rgbd(model: Model, kin: Kin, cam: Camera, hidden_geoms=()):
     """Render a batch of scenarios (``kin`` with leading dim B) -> rgb uint8
     (B, H, W, 3) and the depth buffer float32 (B, H, W), both flipped as

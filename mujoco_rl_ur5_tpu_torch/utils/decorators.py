@@ -14,7 +14,8 @@ a call measures its enqueue unless it waits for the device first:
   * ``dict2list``   -- dict of equal-length arrays -> one stacked array;
   * ``torch_trace`` -- a ``torch.profiler`` context that writes a Chrome
                        trace (the counterpart of the JAX package's
-                       ``jax_trace`` around ``jax.profiler.trace``).
+                       ``jax_trace`` around ``jax.profiler.trace``), with
+                       the port's spans (``trace.py``) over their work.
 """
 
 from __future__ import annotations
@@ -153,14 +154,20 @@ def torch_trace(logdir: str = "torch-trace"):
     where there is one) and write a Chrome trace to
     ``logdir/trace.json`` (chrome://tracing or Perfetto). The counterpart
     of the JAX package's ``jax_trace``; yields the profiler, whose
-    ``key_averages()`` sums the time by operator and kernel."""
+    ``key_averages()`` sums the time by operator and kernel. The port's
+    spans are recorded over the region too (``trace.recording()``): each
+    shows in the trace as a user annotation (``mpc.solve``,
+    ``ilqr.expand``, ``step``, ``collide``, ``render``, ...) over the
+    operators and kernels it launched."""
     from torch.profiler import ProfilerActivity, profile
+
+    from mujoco_rl_ur5_tpu_torch import trace
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, trace.recording():
         yield prof
     path = os.path.join(logdir, "trace.json")
     prof.export_chrome_trace(path)
